@@ -3,23 +3,42 @@
 
     python3 chip_smoke.py
 
-Builds the whole-chunk kernel (sanafe_tpu_torch/csrc/chunk_kernel.cu, nvcc,
-into sanafe_tpu_torch/build/) and the native scheduler from the checkout,
-then runs four phases, each reported on its own line:
+Builds the two CUDA kernels (sanafe_tpu_torch/csrc/*_kernel.cu, one nvcc
+each, started together, into sanafe_tpu_torch/build/) and the native
+scheduler from the checkout, then runs these phases, each reported on its
+own line:
 
 1. setup: the card's name and power limit, the CUDA version, build seconds;
-2. kernel vs plain: the CUDA kernel against its plain PyTorch version
-   (chunk_plain, on CPU copies of the same inputs) on three chips: the
-   384-neuron TCAD'25 random network (1000 steps), the bundled example chip
-   and a small TrueNorth chip with LFSR noise. Counters, mask bytes and
+2. chunk kernel vs plain: the whole-chunk kernel against its plain PyTorch
+   version (chunk_plain, on CPU copies of the same inputs) on three chips:
+   the 384-neuron TCAD'25 random network (1000 steps), the bundled example
+   chip and a small TrueNorth chip with LFSR noise. Counters, mask bytes and
    spike-log bytes must be equal; energy and sim_time sums within 1e-6
    relative; potentials, u and the state within 1e-6 * max(1, |v|);
-3. end to end: SpikingChip(device="cuda") on the random chip, detailed
-   timing with spike and potential traces, then simple timing; the kernel
-   must have run (launch count > 0) and the results must equal a
-   device="cpu" run of the same chip (the detailed sim_time exactly: it is
-   the same host sweep over the same masks);
-4. timing: timesteps/s of the kernel and of chunk_plain on CUDA tensors.
+3. the small-chip path end to end: SpikingChip(device="cuda") on the random
+   chip, detailed timing with spike and potential traces, then simple
+   timing; the chunk kernel must have run (launch count > 0) and the
+   results must equal a device="cpu" run of the same chip (the detailed
+   sim_time exactly: it is the same host sweep over the same masks);
+4. chunk timing: timesteps/s of the kernel and of chunk_plain on CUDA
+   tensors;
+5. delivery kernel vs plain: the activity-gated delivery kernel against
+   delivery_plain on the same card tensors, on the blocks of the TCAD'25
+   "full" random network (128 cores x 256 neurons, float32) and of a
+   4096-neuron random chip (float64), with no, one tile's, 25% and all
+   neurons fired: currents (integer weights) and counts equal;
+6. the step scan at full width: SpikingChip(device="cuda") on the full
+   random network, 1000 steps simple then 200 steps detailed with the spike
+   trace; the engine must be the scan and the delivery kernel must have
+   run; a profiled 100-step window gives the device's busy share; over 50
+   steps the masks and counters of the kernel program must equal a
+   use_kernel=False program's on the same card;
+7. CUDA against CPU, 200 steps each, equal results (the detailed sim_time
+   exactly): the 4096-neuron chip in float32, load_example() in float64 with
+   the perf trace (perf.csv byte-identical), the 384-neuron chip with the
+   perf trace (float32: counters exact, floats within 1e-6 relative);
+8. delivery timing: the kernel's ms per step beside delivery_plain's on
+   CUDA tensors, on the full-width chip's fired pattern at step 50.
 
 It prints the kernels' JSON record on the line before the last, and as the
 last line {"ok": true, "device": {...}}. Any failed check raises, and the
@@ -32,7 +51,9 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -41,6 +62,17 @@ REL_TOL = 1e-6  # energy and sim_time sums
 V_TOL = 1e-6  # potentials, u, state: V_TOL * max(1, |v|)
 FLAGS = dict(record_fired_axons=True, record_potentials=True,
              record_spikes=True, record_u=True)
+# the TCAD'25 "full" random network (scripts/tcad2025/random_network.py:94-99)
+FULL = dict(cores=128, neurons_per_core=256, messages_per_neuron=4,
+            spikes_per_message=8, spike_percentage=25, n_log_potential=0)
+MID = dict(FULL, cores=32, neurons_per_core=128)  # 4096 neurons
+SCAN_SIMPLE_STEPS = 1000
+SCAN_DETAILED_STEPS = 200
+SCAN_PROFILE_STEPS = 100
+SCAN_COMPARE_STEPS = 50
+CPU_STEPS = 200
+PATTERNS = ("none", "one_tile", "25pct", "all")
+COUNTERS = ("spikes", "neurons_fired", "neurons_updated", "packets_sent")
 
 
 class CheckFailed(RuntimeError):
@@ -56,8 +88,8 @@ def random_chip(st, cores=6, neurons_per_core=64, messages_per_neuron=4,
                 spikes_per_message=4, spike_percentage=50, seed=1,
                 n_log_potential=32):
     """The TCAD'25 random network (scripts/tcad2025/random_network.py) on
-    load_loihi(): 384 neurons, every neuron logs spikes, the first 32 log
-    their potential."""
+    load_loihi(): 384 neurons at the defaults, every neuron logs spikes,
+    the first ``n_log_potential`` log their potential."""
     Attribute = st.Attribute
     arch = st.load_loihi()
     rng = np.random.default_rng(seed)
@@ -240,36 +272,141 @@ def compare_chunks(a: dict, b: dict, name: str) -> float:
     return max_err
 
 
+def reset_counts() -> None:
+    from sanafe_tpu_torch.ops import chunk, delivery
+
+    chunk.chunk_kernel.launches = 0
+    delivery.delivery_kernel.launches = 0
+
+
+def read_counts() -> dict:
+    from sanafe_tpu_torch.ops import chunk, delivery
+
+    return {"chunk_kernel": chunk.chunk_kernel.launches,
+            "delivery_kernel": delivery.delivery_kernel.launches}
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean ms of ``fn()`` on the card by CUDA events, after one warm
+    call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    begin = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    begin.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return begin.elapsed_time(end) / reps
+
+
+def device_busy(prof) -> tuple:
+    """Microseconds in which the card ran anything (the union of the
+    profiled device events' spans), and the six device ops with the most
+    time as (us, name, count)."""
+    from torch.autograd import DeviceType
+
+    spans, by_name = [], {}
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        spans.append((evt.time_range.start, evt.time_range.end))
+        us, count = by_name.get(evt.name, (0.0, 0))
+        by_name[evt.name] = (us + evt.time_range.elapsed_us(), count + 1)
+    busy, end = 0.0, None
+    for s, e in sorted(spans):
+        if end is None or s > end:
+            busy += e - s
+            end = e
+        elif e > end:
+            busy += e - end
+            end = e
+    top = sorted(((us, name[:48], count)
+                  for name, (us, count) in by_name.items()), reverse=True)
+    return busy, top[:6]
+
+
+def fired_tiles(blk, n: int, pattern: str, dtype, device):
+    """A [n_tiles, tile] 0/1 fired plane: no neuron, a seeded half of one
+    source tile, a seeded 25%, or every neuron."""
+    import torch
+
+    rng = np.random.default_rng(7)
+    fired = np.zeros(blk.n_pad, dtype=bool)
+    if pattern == "one_tile":
+        lo = blk.tile if blk.n_tiles > 1 else 0
+        fired[lo : lo + blk.tile] = rng.random(blk.tile) < 0.5
+    elif pattern == "25pct":
+        fired[:n] = rng.random(n) < 0.25
+    elif pattern == "all":
+        fired[:n] = True
+    return torch.from_numpy(fired).to(device=device, dtype=dtype).view(
+        blk.n_tiles, blk.tile)
+
+
+def delivery_args(blk, x):
+    return (x, blk.weights, blk.counts, blk.src_tiles, blk.dest_offsets,
+            blk.max_blocks_per_dest)
+
+
+def compare_results(a: dict, b: dict, name: str) -> None:
+    """Device run ``a`` against CPU run ``b``: counters and the detailed
+    sim_time exact (the same host sweep over the same masks)."""
+    for key in COUNTERS:
+        check(a[key] == b[key], f"{name}: {key} {a[key]} vs {b[key]}")
+    check(a["sim_time"] == b["sim_time"],
+          f"{name}: detailed sim_time {a['sim_time']} vs {b['sim_time']}")
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        return run(Path(tmp))
+
+
+def run(tmp: Path) -> int:
+    """Every phase; trace files go under ``tmp``."""
+    import torch
+
     import sanafe_tpu_torch as st
     from sanafe_tpu_torch import native
     from sanafe_tpu_torch.compile import compile_chip
-    from sanafe_tpu_torch.ops import chunk
+    from sanafe_tpu_torch.ops import chunk, cuda_build, delivery
+    from sanafe_tpu_torch.ops.scan import run_scan
+    from sanafe_tpu_torch.ops.step import (
+        build_block_delivery,
+        make_device_program,
+    )
 
-    # full float32 in the plain version's matmuls on the card
+    # full float32 in the plain versions' matmuls on the card
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     cuda = torch.device("cuda")
 
     # --- 1. setup ---
-    build_s = chunk.build_library()
+    build_s = cuda_build.build(cuda_build.CHUNK, cuda_build.DELIVERY)
     start = time.perf_counter()
     native.get_library()
     native_s = time.perf_counter() - start
-    ptxas = [line.strip() for line in chunk._KERNEL_LIB.with_suffix(
-        ".log").read_text().splitlines() if "registers" in line]
+    ptxas = {
+        lib.name: [line.strip() for line in lib.log.read_text().splitlines()
+                   if "registers" in line]
+        for lib in (cuda_build.CHUNK, cuda_build.DELIVERY)
+    }
     print(f"setup: card {card} | torch {torch.__version__} cuda "
-          f"{torch.version.cuda} | kernel build {build_s} s | native "
-          f"scheduler build {native_s} s | ptxas {ptxas}")
+          f"{torch.version.cuda} | kernel builds (parallel) {build_s} s | "
+          f"native scheduler build {native_s} s | ptxas {ptxas}")
 
-    # --- 2. kernel vs plain, on the same inputs ---
-    max_abs_err = 0.0
+    # --- 2. chunk kernel vs plain, on the same inputs ---
+    chunk_err = 0.0
     chips = [
         ("random384", random_chip(st), STEPS),
         ("example", st.load_example(), STEPS),
@@ -290,15 +427,15 @@ def main() -> int:
         b = kern.decode(*kern.run(chunk.chunk_kernel))
         torch.cuda.synchronize()
         err = compare_chunks(a, b, name)
-        max_abs_err = max(max_abs_err, err)
-        print(f"kernel_vs_plain: {name} n={compiled.n_neurons} "
+        chunk_err = max(chunk_err, err)
+        print(f"chunk_kernel_vs_plain: {name} n={compiled.n_neurons} "
               f"npad={kern.plan.npad} M={kern.plan.m_cols} T={n_steps} "
               f"spikes={int(b['counter_sums'][0])} "
               f"fired={int(b['counter_sums'][4])} max_abs_err={err} "
               f"(exact counters/masks/spike bytes; sums rel {REL_TOL}; "
               f"v,u,state {V_TOL}*max(1,|v|)) OK")
 
-    # --- 3. end to end through the user API ---
+    # --- 3. the small-chip path end to end through the user API ---
     def e2e(device):
         arch, net = random_chip(st)
         chip = st.SpikingChip(arch, device=device)
@@ -320,20 +457,20 @@ def main() -> int:
         t_simple = time.perf_counter() - t
         return det, simple, t_det, t_simple, walls
 
-    chunk.chunk_kernel.launches = 0
+    reset_counts()
     det, simple, t_det, t_simple, walls = e2e(cuda)
     torch.cuda.synchronize()
-    launches = chunk.chunk_kernel.launches
+    chunk_counts = read_counts()
     ref_det, ref_simple, *_ = e2e("cpu")
     check(det["device_engine"] == "chunk_kernel",
           f"engine {det['device_engine']}")
-    check(launches > 0, "the main path launched no chunk kernel")
+    check(chunk_counts["chunk_kernel"] > 0,
+          "the small-chip path launched no chunk kernel")
     check(det["spikes"] > 0, "the random chip did not fire")
-    for key in ("spikes", "neurons_fired", "neurons_updated", "packets_sent",
-                "sim_time"):
+    for key in COUNTERS + ("sim_time",):
         check(det[key] == ref_det[key], f"detailed {key}: {det[key]} vs "
               f"{ref_det[key]}")
-    for key in ("spikes", "neurons_fired", "neurons_updated", "packets_sent"):
+    for key in COUNTERS:
         check(simple[key] == ref_simple[key], f"simple {key}")
     for x, y in [(simple["sim_time"], ref_simple["sim_time"])] + [
         (simple["energy"][k], ref_simple["energy"][k])
@@ -359,42 +496,278 @@ def main() -> int:
           f"({STEPS / t_det} steps/s, {t_det} s, host walls s {walls}); "
           f"simple {STEPS} steps sim_time="
           f"{simple['sim_time']} ({STEPS / t_simple} steps/s); engine "
-          f"{det['device_engine']}, chunk_kernel launches {launches}; "
+          f"{det['device_engine']}, launches {chunk_counts}; "
           f"equal to the device='cpu' run | {card}")
 
-    # --- 4. timing at the main path's shape (random chip, one chunk) ---
-    compiled = compile_chip(*random_chip(st))
-    case = ChunkCase(compiled, cuda, {}, STEPS)
+    # --- 4. chunk timing at the main path's shape (random chip) ---
+    case = ChunkCase(compile_chip(*random_chip(st)), cuda, {}, STEPS)
+    chunk_ms = cuda_ms(lambda: case.run(chunk.chunk_kernel), 10)
+    chunk_plain_ms = cuda_ms(lambda: case.run(chunk.chunk_plain), 2)
+    print(f"chunk_timing: random384 chunk of {STEPS} steps: chunk_kernel "
+          f"{chunk_ms} ms ({STEPS / chunk_ms * 1e3} steps/s), chunk_plain "
+          f"on CUDA tensors {chunk_plain_ms} ms "
+          f"({STEPS / chunk_plain_ms * 1e3} steps/s) | {card}")
+    del case
 
-    def time_ms(fn, reps):
-        case.run(fn)  # warm
+    # --- 5. delivery kernel vs plain, on the same card tensors ---
+    start = time.perf_counter()
+    full_compiled = compile_chip(*random_chip(st, **FULL))
+    mid_compiled = compile_chip(*random_chip(st, **MID))
+    compile_s = time.perf_counter() - start
+    delivery_err = 0.0
+    for name, compiled, dtype in (("full", full_compiled, torch.float32),
+                                  ("mid", mid_compiled, torch.float64)):
+        start = time.perf_counter()
+        blk = build_block_delivery(compiled, dtype, cuda)
         torch.cuda.synchronize()
-        begin = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        begin.record()
-        for _ in range(reps):
-            case.run(fn)
-        end.record()
+        blk_s = time.perf_counter() - start
+        for pattern in PATTERNS:
+            args = delivery_args(
+                blk, fired_tiles(blk, compiled.n_neurons, pattern, dtype,
+                                 cuda))
+            cur, cnt = delivery.delivery_kernel(*args)
+            ref_cur, ref_cnt = delivery.delivery_plain(*args)
+            torch.cuda.synchronize()
+            check(cur.dtype == dtype and cnt.dtype == torch.int32,
+                  f"{name} {pattern}: result dtypes")
+            check(torch.equal(cur, ref_cur),
+                  f"{name} {pattern}: currents differ from delivery_plain")
+            check(torch.equal(cnt, ref_cnt),
+                  f"{name} {pattern}: counts differ from delivery_plain")
+            err = float((cur - ref_cur).abs().max())
+            delivery_err = max(delivery_err, err)
+            print(f"delivery_kernel_vs_plain: {name} n={compiled.n_neurons} "
+                  f"{str(dtype)[6:]} blocks={blk.weights.shape[0]} "
+                  f"tile={blk.tile} pattern={pattern} fired="
+                  f"{int(args[0].sum())} reached={int((cnt > 0).sum())} "
+                  f"max_abs_err={err} (currents and counts equal) OK")
+        print(f"delivery_setup: {name} block build {blk_s} s, weights "
+              f"{blk.weights.numel() * blk.weights.element_size()} B, counts "
+              f"{blk.counts.numel()} B; compile of both chips {compile_s} s")
+        del blk, args, cur, cnt, ref_cur, ref_cnt
+    torch.cuda.empty_cache()
+
+    # --- 6. the step scan at full width through the user API ---
+    spikes_csv = tmp / "full_spikes.csv"
+    reset_counts()
+    arch, net = random_chip(st, **FULL)
+    chip = st.SpikingChip(arch, device=cuda)
+    chip.load(net)
+    warm = chip.sim(10, heartbeat=0)  # builds the simple program
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    simple = chip.sim(SCAN_SIMPLE_STEPS, heartbeat=0)
+    torch.cuda.synchronize()
+    t_simple = time.perf_counter() - t
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        chip.sim(SCAN_PROFILE_STEPS, heartbeat=0)
         torch.cuda.synchronize()
-        return begin.elapsed_time(end) / reps
+        t_prof = time.perf_counter() - t
+    device_us, top = device_busy(prof)
+    busy = device_us * 1e-6 / t_prof if device_us else "not measured"
+    wall_names = {"launch": "neuron_processing_wall",
+                  "fetch": "message_processing_wall",
+                  "sweep": "scheduler_wall", "sums": "energy_stats_wall",
+                  "setup": "setup_wall"}
+    before = {k: getattr(chip, v) for k, v in wall_names.items()}
+    t = time.perf_counter()
+    det = chip.sim(SCAN_DETAILED_STEPS, timing_model="detailed",
+                   spike_trace=spikes_csv, heartbeat=0)
+    torch.cuda.synchronize()
+    t_det = time.perf_counter() - t
+    chip.close()
+    scan_counts = read_counts()
+    det_walls = {k: getattr(chip, v) - before[k]
+                 for k, v in wall_names.items()}
+    for result in (warm, simple, det):
+        check(result["device_engine"] == "scan",
+              f"full width ran on {result['device_engine']}")
+    check(scan_counts["delivery_kernel"] > 0,
+          "the full-width scan launched no delivery kernel")
+    check(simple["neurons_fired"] > 0 and det["neurons_fired"] > 0,
+          "the full-width chip did not fire")
+    for result in (simple, det):
+        check(all(np.isfinite(v) and v >= 0
+                  for v in result["energy"].values())
+              and result["energy"]["total"] > 0
+              and np.isfinite(result["sim_time"]) and result["sim_time"] > 0,
+              "full-width energies or sim_time not finite and positive")
+    with open(spikes_csv, "rb") as f:
+        spike_rows = sum(1 for _ in f) - 1
+    check(spike_rows == det["neurons_fired"],
+          f"spike trace rows {spike_rows} vs fired {det['neurons_fired']}")
+    spikes_csv.unlink()
+    n_full = full_compiled.n_neurons
+    print(f"scan_end_to_end: full n={n_full} edges={full_compiled.n_edges} "
+          f"cores={full_compiled.n_cores} simple {SCAN_SIMPLE_STEPS} steps "
+          f"{SCAN_SIMPLE_STEPS / t_simple} steps/s ({t_simple} s) fired="
+          f"{simple['neurons_fired']} spikes={simple['spikes']} sim_time="
+          f"{simple['sim_time']}; detailed {SCAN_DETAILED_STEPS} steps with "
+          f"the spike trace {SCAN_DETAILED_STEPS / t_det} steps/s "
+          f"({t_det} s, {spike_rows} spike rows, walls s {det_walls}) "
+          f"sim_time={det['sim_time']}; engine scan, launches {scan_counts} "
+          f"| {card}")
+    print(f"scan_profile: full simple {SCAN_PROFILE_STEPS} steps under "
+          f"torch.profiler: wall {t_prof} s, device time {device_us * 1e-6} "
+          f"s, busy share {busy}; top device ops (us, op, count) {top} | "
+          f"{card}")
+    del chip, prof
+    torch.cuda.empty_cache()
 
-    kernel_ms = time_ms(chunk.chunk_kernel, 10)
-    plain_ms = time_ms(chunk.chunk_plain, 2)
-    print(f"timing: random384 chunk of {STEPS} steps: chunk_kernel "
-          f"{kernel_ms} ms ({STEPS / kernel_ms * 1e3} steps/s), chunk_plain "
-          f"on CUDA tensors {plain_ms} ms ({STEPS / plain_ms * 1e3} "
-          f"steps/s) | {card}")
+    # kernel program against the use_kernel=False program, same card
+    outs = {}
+    for use_kernel in (True, False):
+        prog = make_device_program(full_compiled, cuda, torch.float32,
+                                   record_fired_axons=True,
+                                   use_kernel=use_kernel)
+        check(prog.kernel_delivery == use_kernel and "block_wc"
+              not in prog.arrays and not prog.dense_delivery,
+              f"full-width program shape (use_kernel={use_kernel})")
+        _, out = run_scan(prog, prog.init_state(), 1, SCAN_COMPARE_STEPS)
+        outs[use_kernel] = {k: v.cpu().numpy() for k, v in out.items()}
+        if use_kernel:
+            blk = prog.block
+        del prog, out
+        torch.cuda.empty_cache()
+    check(np.array_equal(outs[True]["masks_packed"],
+                         outs[False]["masks_packed"]),
+          "full width: masks differ between use_kernel True and False")
+    check(np.array_equal(np.round(outs[True]["stats"][:, :5]),
+                         np.round(outs[False]["stats"][:, :5])),
+          "full width: counters differ between use_kernel True and False")
+    print(f"scan_kernel_vs_plain_program: full {SCAN_COMPARE_STEPS} steps "
+          f"masks and counters equal (fired per step "
+          f"{np.round(outs[True]['stats'][-1, 4])}) OK")
 
-    print(json.dumps({"kernels": [{
-        "name": "chunk_kernel",
-        "route": "cuda",
-        "source": "sanafe_tpu_torch/csrc/chunk_kernel.cu",
-        "replaces": "sanafe_tpu/ops/pallas_chunk.py:322",
-        "launches": launches,
-        "max_abs_err": max_abs_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-    }]}))
+    # --- 7. CUDA against CPU through the user API ---
+    def run_sim(name, builder, device, dtype, spikes=False, perf=None):
+        """``CPU_STEPS`` detailed steps; ``perf`` None, "file" or
+        "memory". Trace files come back as bytes in result["files"]."""
+        arch, net = builder()
+        chip = st.SpikingChip(arch, device=device, dtype=dtype)
+        chip.load(net)
+        tag = f"{name}_{chip.device.type}_{str(dtype)[6:]}"
+        paths = {}
+        if spikes:
+            paths["spikes"] = tmp / f"{tag}_spikes.csv"
+        if perf == "file":
+            paths["perf"] = tmp / f"{tag}_perf.csv"
+        t = time.perf_counter()
+        result = chip.sim(CPU_STEPS, timing_model="detailed", heartbeat=0,
+                          spike_trace=paths.get("spikes"),
+                          perf_trace=paths.get("perf", perf == "memory"))
+        chip.close()
+        result["wall"] = time.perf_counter() - t
+        check(result["device_engine"] == "scan",
+              f"{tag} ran on {result['device_engine']}")
+        result["files"] = {k: p.read_bytes() for k, p in paths.items()}
+        return result
+
+    # float32 energies: the card and the CPU sum in other orders, so each
+    # is held to a float64 CPU run of the same chip; the card may add at
+    # most REL_TOL relative error beyond the CPU's
+    def check_f32(x, y, r, what):
+        check(bool(np.isfinite(x)) and abs(x - r) <= abs(y - r)
+              + REL_TOL * abs(r), f"{what}: cuda {x} cpu {y} float64 {r}")
+
+    mid = lambda: random_chip(st, **MID)  # noqa: E731
+    a = run_sim("mid", mid, cuda, torch.float32, spikes=True)
+    b = run_sim("mid", mid, "cpu", torch.float32, spikes=True)
+    r = run_sim("mid", mid, "cpu", torch.float64)
+    compare_results(a, b, "mid f32")
+    for key in r["energy"]:
+        check_f32(a["energy"][key], b["energy"][key], r["energy"][key],
+                  f"mid energy {key}")
+    check(a["files"]["spikes"] == b["files"]["spikes"],
+          "mid f32: spikes.csv differs")
+    print(f"cuda_vs_cpu: mid n=4096 float32 {CPU_STEPS} steps detailed "
+          f"fired={a['neurons_fired']} sim_time={a['sim_time']}: counters, "
+          f"sim_time and spikes.csv equal; energies (cuda, cpu, float64) "
+          f"{[(a['energy'][k], b['energy'][k], r['energy'][k]) for k in r['energy']]} "
+          f"(cuda {a['wall']} s, cpu {b['wall']} s) OK")
+
+    a = run_sim("example", st.load_example, cuda, torch.float64, spikes=True,
+                perf="file")
+    b = run_sim("example", st.load_example, "cpu", torch.float64,
+                spikes=True, perf="file")
+    compare_results(a, b, "example f64")
+    check(a["energy"] == b["energy"], "example f64: energies differ")
+    check(a["files"]["perf"] == b["files"]["perf"]
+          and a["files"]["perf"].count(b"\n") == CPU_STEPS + 1,
+          "example f64: perf.csv not byte-identical")
+    check(a["files"]["spikes"] == b["files"]["spikes"],
+          "example f64: spikes.csv differs")
+    print(f"cuda_vs_cpu: example float64 perf trace {CPU_STEPS} steps "
+          f"detailed spikes={a['spikes']} energy={a['energy']['total']}: "
+          f"results equal, perf.csv ({len(a['files']['perf'])} B) and "
+          f"spikes.csv byte-identical OK")
+
+    small = lambda: random_chip(st)  # noqa: E731
+    a = run_sim("random384", small, cuda, torch.float32, perf="memory")
+    b = run_sim("random384", small, "cpu", torch.float32, perf="memory")
+    r = run_sim("random384", small, "cpu", torch.float64, perf="memory")
+    compare_results(a, b, "random384 f32")
+    pa, pb, pr = (x["perf_trace"] for x in (a, b, r))
+    check(list(pa.keys()) == list(pb.keys()) == list(pr.keys()),
+          "random384: perf columns differ")
+    for key in pa.keys():
+        if key in ("timestep", "fired", "updated", "packets", "hops",
+                   "spikes", "sim_time"):
+            check(pa[key] == pb[key] == pr[key], f"random384 perf {key}")
+        else:
+            for step, (x, y, z) in enumerate(zip(pa[key], pb[key], pr[key])):
+                check_f32(x, y, z, f"random384 perf {key} step {step}")
+    print(f"cuda_vs_cpu: random384 float32 perf trace {CPU_STEPS} steps "
+          f"detailed spikes={a['spikes']}: counters, sim_time and perf "
+          f"counter columns equal; perf energies within the CPU's error + "
+          f"{REL_TOL} of the float64 run OK")
+
+    # --- 8. delivery timing on the full-width chip's own fired pattern ---
+    masks = outs[True]["masks_packed"]
+    fired = np.zeros(blk.n_pad, dtype=bool)
+    fired[:n_full] = np.unpackbits(masks[-1, 0])[:n_full].astype(bool)
+    x = torch.from_numpy(fired).to(device=cuda, dtype=torch.float32).view(
+        blk.n_tiles, blk.tile)
+    args = delivery_args(blk, x)
+    delivery_ms = cuda_ms(lambda: delivery.delivery_kernel(*args), 50)
+    delivery_plain_ms = cuda_ms(lambda: delivery.delivery_plain(*args), 5)
+    active = int(x.any(dim=1).sum())
+    # bytes the kernel must read: the fired rows of every active block
+    rows = x.sum(dim=1)[blk.src_tiles.long()]
+    read_b = int(rows.sum()) * blk.tile * (4 + 1)
+    print(f"delivery_timing: full step {SCAN_COMPARE_STEPS} fired "
+          f"{int(fired.sum())}/{n_full}, {active}/{blk.n_tiles} source tiles "
+          f"active, {blk.weights.shape[0]} blocks: delivery_kernel "
+          f"{delivery_ms} ms ({read_b / delivery_ms * 1e-6} GB/s of fired "
+          f"rows), delivery_plain on CUDA tensors {delivery_plain_ms} ms | "
+          f"{card}")
+
+    print(json.dumps({"kernels": [
+        {
+            "name": "chunk_kernel",
+            "route": "cuda",
+            "source": "sanafe_tpu_torch/csrc/chunk_kernel.cu",
+            "replaces": "sanafe_tpu/ops/pallas_chunk.py:322",
+            "launches": chunk_counts["chunk_kernel"],
+            "max_abs_err": chunk_err,
+            "ms": chunk_ms,
+            "plain_ms": chunk_plain_ms,
+        },
+        {
+            "name": "delivery_kernel",
+            "route": "cuda",
+            "source": "sanafe_tpu_torch/csrc/delivery_kernel.cu",
+            "replaces": "sanafe_tpu/ops/pallas_delivery.py:41",
+            "launches": scan_counts["delivery_kernel"],
+            "max_abs_err": delivery_err,
+            "ms": delivery_ms,
+            "plain_ms": delivery_plain_ms,
+        },
+    ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,13 +1,20 @@
 """SpikingChip: the user-facing simulator object, on PyTorch.
 
-Counterpart of ``sanafe_tpu/chip.py`` for the port's slice: a chip whose
-program the whole-chunk engine accepts (``ops/chunk.py``: at most 128 cores
-and 384 neurons, built-in LIF / TrueNorth / Input somas, plain accumulator
-dendrites) runs each chunk of timesteps in one launch of the CUDA kernel
-(``device="cuda"``) or through the kernel's plain PyTorch version
-(``device="cpu"``). The host half is the JAX package's: the per-chunk decode,
-the detailed and cycle timing sweeps of the native C++ scheduler, the trace
-writers and the run summary.
+Counterpart of ``sanafe_tpu/chip.py``. Each chunk of timesteps runs on one
+of two device engines, chosen as sanafe_tpu's ``_make_chunk_runner`` chooses:
+
+- the whole-chunk engine (``ops/chunk.py``) for a chip it accepts (at most
+  128 cores and 384 neurons, built-in LIF / TrueNorth / Input somas, plain
+  accumulator dendrites): one launch of the CUDA kernel per chunk
+  (``device="cuda"``, float32) or the kernel's plain PyTorch version
+  (``device="cpu"``);
+- the step scan (``ops/scan.py``) for every other chip, for the perf trace
+  and for float64 on CUDA, with block delivery through the CUDA delivery
+  kernel on the card (``ops/delivery.py``).
+
+The host half is the JAX package's: the per-chunk decode, the exact float64
+perf energies, the detailed and cycle timing sweeps of the native C++
+scheduler, the trace writers and the run summary.
 
 A request the slice cannot serve raises ``NotImplementedError`` naming the
 ROADMAP item that ports it; nothing silently runs another engine or another
@@ -38,7 +45,8 @@ from .ops.chunk import (
     state_from_rows,
     state_rows,
 )
-from .ops.step import DeviceProgram, make_device_program
+from .ops.scan import run_scan
+from .ops.step import DeviceProgram, initial_state, make_device_program
 from .ops.timing import (
     MessageRecord,
     build_timestep_messages,
@@ -48,9 +56,11 @@ from .ops.timing import (
     write_message_rows_fast,
 )
 from .trace import (
+    PERF_COLUMNS,
     MessageTrace,
     NeuronAddress,
     NeuronTrace,
+    PerfTrace,
     PotentialTrace,
     SpikeTrace,
     TraceSink,
@@ -60,6 +70,7 @@ from .trace import (
     write_message_header,
     write_message_row,
     write_neuron_trace_header,
+    write_perf_header,
     write_potential_header,
     write_spike_header,
 )
@@ -69,10 +80,6 @@ HEARTBEAT_TIMESTEPS = 100  # src/chip.hpp:38
 DEFAULT_CHUNK = 1024
 # Head and tail chunk length under host-swept timing (see _plan_chunks)
 TAPER_CHUNK = 128
-STATE_KEYS = (
-    "potential", "input_current", "refractory", "buffer_current",
-    "buffer_valid",
-)
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -130,26 +137,29 @@ class _AsyncTraceWriter:
 
 
 class _HostCopy:
-    """A chunk's output buffer on its way to host memory. On CUDA the copy
-    goes to pinned memory without blocking and an event marks its end, so
-    the host sweeps chunk k while the card computes chunk k+1."""
+    """A chunk's output tensors on their way to host memory. On CUDA the
+    copies go to pinned memory without blocking and an event marks their
+    end, so the host sweeps chunk k while the card computes chunk k+1."""
 
-    def __init__(self, packed: torch.Tensor):
-        if packed.device.type == "cuda":
-            self._host = torch.empty(
-                packed.shape, dtype=packed.dtype, pin_memory=True
-            )
-            self._host.copy_(packed, non_blocking=True)
+    def __init__(self, outputs: dict[str, torch.Tensor]):
+        self._event = None
+        self._host = {}
+        for key, value in outputs.items():
+            if value.device.type == "cuda":
+                host = torch.empty(value.shape, dtype=value.dtype,
+                                   pin_memory=True)
+                host.copy_(value, non_blocking=True)
+                self._host[key] = host
+            else:
+                self._host[key] = value
+        if any(v.device.type == "cuda" for v in outputs.values()):
             self._event = torch.cuda.Event()
             self._event.record()
-        else:
-            self._host = packed
-            self._event = None
 
-    def get(self) -> np.ndarray:
+    def get(self) -> dict[str, np.ndarray]:
         if self._event is not None:
             self._event.synchronize()
-        return self._host.numpy()
+        return {key: value.numpy() for key, value in self._host.items()}
 
 
 def _plan_chunks(total: int, chunk: int, taper: int) -> list:
@@ -237,19 +247,22 @@ class _TraceState:
 
 @dataclass
 class _Engine:
-    """One device program with its chunk plan and device operands."""
+    """One device program with the engine that runs its chunks: the
+    whole-chunk engine (its plan and device operands) or, with ``plan``
+    None, the step scan."""
 
     prog: DeviceProgram
-    plan: Any
-    mats: dict
+    plan: Any = None
+    mats: Optional[dict] = None
+    # "chunk_kernel", "chunk_plain" or "scan": result["device_engine"]
+    name: str = "scan"
 
 
 class SpikingChip:
     """A loaded chip simulated on ``device`` in ``dtype``.
 
     ``device`` defaults to ``"cuda"`` and is never replaced by the CPU: on a
-    machine without CUDA pass ``device="cpu"`` explicitly. float64 runs on
-    the CPU only."""
+    machine without CUDA pass ``device="cpu"`` explicitly."""
 
     def __init__(self, arch: Architecture, device: Any = None,
                  dtype: torch.dtype = torch.float32):
@@ -263,12 +276,6 @@ class SpikingChip:
             raise ValueError(f"SpikingChip: unsupported device {device}")
         if dtype not in (torch.float32, torch.float64):
             raise ValueError(f"SpikingChip: unsupported dtype {dtype}")
-        if device.type == "cuda" and dtype != torch.float32:
-            raise _not_ported(
-                "float64 on CUDA",
-                "ROADMAP.md section 1, the step scan for ineligible chips, "
-                "float64 on CUDA and the perf trace",
-            )
         self.arch = arch
         self.device = device
         self.dtype = dtype
@@ -293,7 +300,10 @@ class SpikingChip:
 
         self._device_state: Optional[dict] = None
         self._nets: list[SpikingNetwork] = []
+        self._programs: dict[tuple, DeviceProgram] = {}
         self._engines: dict[tuple, _Engine] = {}
+        self._exact_energy = None
+        self._exact_energy_model = None
         self._trace_states: dict[str, _TraceState] = {}
         self._trace_writer: Optional[_AsyncTraceWriter] = None
         self._spike_labels = None
@@ -342,6 +352,7 @@ class SpikingChip:
             self._nets = [net]
             self.compiled = compile_chip(self.arch, net)
             self._device_state = None
+        self._programs.clear()
         self._engines.clear()
         # spike-trace caches are keyed on label COUNT; a different network
         # with the same number of logged neurons would stream stale labels
@@ -367,9 +378,7 @@ class SpikingChip:
         return merged
 
     def _init_state(self) -> dict:
-        return make_device_program(
-            self.compiled, self.device, self.dtype
-        ).init_state()
+        return initial_state(self.compiled, self.dtype, self.device)
 
     def _migrate_state(self, old_compiled, old_state) -> dict:
         """Carry live per-neuron state across a recompile: existing neurons
@@ -391,35 +400,46 @@ class SpikingChip:
         new_idx = torch.as_tensor(new_slots, dtype=torch.int64,
                                   device=self.device)
         for key, value in new_state.items():
-            value[new_idx] = old_state[key][old_idx]
+            if key not in old_state:
+                continue
+            if key == "delay_ring":  # [max_delay + 1, n]
+                value[:, new_idx] = old_state[key][:, old_idx]
+            else:
+                value[new_idx] = old_state[key][old_idx]
         return new_state
 
     def load_state_arrays(self, arrays: dict) -> None:
         """Set the live neuron state from host arrays, e.g. the arrays of a
         ``sanafe_tpu`` chip's ``.npz`` checkpoint (``save_state``):
         ``potential``, ``input_current``, ``refractory`` (int),
-        ``buffer_current``, ``buffer_valid`` (bool), and optionally
-        ``__total_timesteps__``, which sets the chip's timestep counter."""
+        ``buffer_current``, ``buffer_valid`` (bool), on chips with those
+        dendrites ``delay_ring`` ([max_delay + 1, n]) and ``tap_voltages``
+        ([n, max_taps]), and optionally ``__total_timesteps__``, which sets
+        the chip's timestep counter."""
         if self.compiled is None:
             raise RuntimeError("No network loaded; call load() first")
-        unknown = set(arrays) - set(STATE_KEYS) - {"__total_timesteps__"}
+        template = self._init_state()
+        unknown = set(arrays) - set(template) - {"__total_timesteps__"}
         if unknown:
             raise ValueError(
                 f"load_state_arrays: state {sorted(unknown)} belongs to "
-                "models the port does not run"
+                "models this chip does not run"
             )
-        n = self.compiled.n_neurons
-        dtypes = {"refractory": torch.int32, "buffer_valid": torch.bool}
+        missing = set(template) - set(arrays)
+        if missing:
+            raise ValueError(
+                f"load_state_arrays: state {sorted(missing)} is missing"
+            )
         state = {}
-        for key in STATE_KEYS:
+        for key, init in template.items():
             value = np.asarray(arrays[key])
-            if value.shape != (n,):
+            if value.shape != tuple(init.shape):
                 raise ValueError(
                     f"load_state_arrays: {key} has shape {value.shape}, "
-                    f"expected ({n},)"
+                    f"expected {tuple(init.shape)}"
                 )
             state[key] = torch.as_tensor(value).to(
-                device=self.device, dtype=dtypes.get(key, self.dtype)
+                device=self.device, dtype=init.dtype
             )
         self._device_state = state
         if "__total_timesteps__" in arrays:
@@ -446,8 +466,9 @@ class SpikingChip:
         """Run ``timesteps`` steps (src/chip.cpp:477-533 /
         pymodule.cpp:549). Same keywords and result dict as
         ``sanafe_tpu.SpikingChip.sim``; ``result["device_engine"]`` names
-        the engine that ran (``"chunk_kernel"`` on CUDA, ``"chunk_plain"``
-        on the CPU)."""
+        the engine that ran: the whole-chunk engine (``"chunk_kernel"`` on
+        CUDA, ``"chunk_plain"`` on the CPU) or the step scan
+        (``"scan"``)."""
         if self.compiled is None:
             raise RuntimeError("No network loaded; call load() first")
         if timing_model not in TIMING_MODELS:
@@ -459,12 +480,6 @@ class SpikingChip:
             raise _not_ported(
                 "the device detailed-timing sweep (device_sweep=True)",
                 "ROADMAP.md section 2, kernel 2 merge_sweep._wave_kernel_fn",
-            )
-        if _requested(perf_trace):
-            raise _not_ported(
-                "the perf trace",
-                "ROADMAP.md section 1, the step scan for ineligible chips, "
-                "float64 on CUDA and the perf trace",
             )
         if timing_model == "cycle" and self._get_native_scheduler() is None:
             print(
@@ -478,16 +493,25 @@ class SpikingChip:
         del processing_threads, scheduler_threads
 
         need_messages = _requested(message_trace)
+        perf_on = _requested(perf_trace)
+        # Byte-exact perf energy columns (ops/exact_energy.py): on the
+        # float64 parity path whenever perf rows are produced; float32
+        # programs keep the device sums.
+        self._exact_energy = None
+        if perf_on and self.dtype == torch.float64:
+            self._exact_energy = self._get_exact_energy()
         prog_key = (
-            need_messages or timing_model in ("detailed", "cycle"),
+            need_messages or timing_model in ("detailed", "cycle")
+            or self._exact_energy is not None,
             _requested(potential_trace),
             _requested(spike_trace),
             _requested(neuron_trace),
         )
-        engine = self._engine(prog_key)
+        engine = self._engine(prog_key, perf_on)
         taper = TAPER_CHUNK if timing_model in ("detailed", "cycle") else 0
         schedule = _plan_chunks(timesteps, chunk, taper)
-        if schedule and not engine.plan.fits(max(schedule)):
+        if schedule and engine.plan is not None and not engine.plan.fits(
+                max(schedule)):
             raise ValueError(
                 f"chunk of {max(schedule)} steps could wrap the int32 "
                 "counter sums on this chip; pass a smaller chunk"
@@ -499,7 +523,7 @@ class SpikingChip:
         # reference Python module (src/pymodule.cpp:549-706)
         self.close()
         self._open_traces(spike_trace, potential_trace, neuron_trace,
-                          message_trace, write_trace_headers)
+                          perf_trace, message_trace, write_trace_headers)
         if any(state.sink.stream is not None
                for state in self._trace_states.values()):
             self._trace_writer = _AsyncTraceWriter()
@@ -513,8 +537,8 @@ class SpikingChip:
         try:
             for length in schedule:
                 device_start = time.perf_counter()
-                packed = self._run_chunk(engine, t0, length)
-                fetch = _HostCopy(packed)
+                outputs = self._run_chunk(engine, t0, length)
+                fetch = _HostCopy(outputs)
                 self.neuron_processing_wall += (
                     time.perf_counter() - device_start
                 )
@@ -562,50 +586,65 @@ class SpikingChip:
 
         traces = self._trace_states
         result = rd.to_dict()
-        result["device_engine"] = engine.prog.engine
+        result["device_engine"] = engine.name
         result["spike_trace"] = traces["spike"].memory
         result["potential_trace"] = traces["potential"].memory
         result["neuron_trace"] = traces["neuron"].memory
-        result["perf_trace"] = None
+        result["perf_trace"] = traces["perf"].memory
         result["message_trace"] = traces["message"].memory
         return result
 
-    def _engine(self, prog_key: tuple) -> _Engine:
-        """The chunk engine for one set of recording flags, built once."""
-        engine = self._engines.get(prog_key)
+    def _engine(self, prog_key: tuple, perf_on: bool) -> _Engine:
+        """The device engine for one set of recording flags, built once.
+        As sanafe_tpu's ``_make_chunk_runner`` chooses: the whole-chunk
+        engine when it takes the program, else the step scan. The perf
+        trace needs per-step stats rows and the chunk kernel runs float32
+        only, so both take the scan."""
+        use_scan = perf_on or (
+            self.device.type == "cuda" and self.dtype != torch.float32
+        )
+        engine = self._engines.get(prog_key + (use_scan,))
         if engine is not None:
             return engine
         start = time.perf_counter()
-        record_fired_axons, record_potentials, record_spikes, record_u = (
-            prog_key
-        )
-        prog = make_device_program(
-            self.compiled, self.device, self.dtype,
-            record_fired_axons=record_fired_axons,
-            record_potentials=record_potentials,
-            record_spikes=record_spikes,
-            record_u=record_u,
-        )
-        plan = plan_chunk(prog)
-        if plan is None:
-            raise _not_ported(
-                "simulating a chip the whole-chunk engine does not take "
-                "(over 128 cores or 384 neurons, delay/multitap/plugin "
-                "models, or logs over 1024 neurons)",
-                "ROADMAP.md section 1, the step scan for ineligible chips",
+        prog = self._programs.get(prog_key)
+        if prog is None:
+            record_fired_axons, record_potentials, record_spikes, record_u = (
+                prog_key
             )
-        prog.engine = (
-            "chunk_kernel" if self.device.type == "cuda" else "chunk_plain"
-        )
-        engine = _Engine(prog, plan, chunk_tensors(plan, self.device))
-        self._engines[prog_key] = engine
+            prog = make_device_program(
+                self.compiled, self.device, self.dtype,
+                record_fired_axons=record_fired_axons,
+                record_potentials=record_potentials,
+                record_spikes=record_spikes,
+                record_u=record_u,
+            )
+            self._programs[prog_key] = prog
+        plan = None if use_scan else plan_chunk(prog)
+        if plan is None:
+            engine = _Engine(prog, name="scan")
+        else:
+            engine = _Engine(
+                prog, plan, chunk_tensors(plan, self.device),
+                name=("chunk_kernel" if self.device.type == "cuda"
+                      else "chunk_plain"),
+            )
+        self._engines[prog_key + (use_scan,)] = engine
         self.setup_wall += time.perf_counter() - start
         return engine
 
-    def _run_chunk(self, engine: _Engine, t0: int, length: int):
-        """Launch one chunk; the state stays on the device."""
+    def _run_chunk(self, engine: _Engine, t0: int,
+                   length: int) -> dict[str, torch.Tensor]:
+        """Run one chunk; the state stays on the device. Returns the chunk's
+        output tensors: the scan's named outputs, or the whole-chunk
+        engine's byte buffer as ``packed``."""
         prog, plan = engine.prog, engine.plan
         feeds = self._build_feeds(length)
+        if plan is None:
+            self._device_state, outputs = run_scan(
+                prog, self._device_state, t0, length, feeds
+            )
+            return outputs
         spike_plane, add_plane = build_planes(prog, plan, length, t0, feeds)
         rows_out, packed = chunk_kernel(
             plan, engine.mats, state_rows(plan, self._device_state,
@@ -613,15 +652,17 @@ class SpikingChip:
             t0, length, spike_plane, add_plane,
         )
         self._device_state = state_from_rows(plan, rows_out)
-        return packed
+        return {"packed": packed}
 
     def _open_traces(self, spike_trace, potential_trace, neuron_trace,
-                     message_trace, write_trace_headers: bool) -> None:
+                     perf_trace, message_trace,
+                     write_trace_headers: bool) -> None:
         c = self.compiled
         states = {
             "spike": _TraceState(TraceSink(spike_trace)),
             "potential": _TraceState(TraceSink(potential_trace)),
             "neuron": _TraceState(TraceSink(neuron_trace)),
+            "perf": _TraceState(TraceSink(perf_trace)),
             "message": _TraceState(TraceSink(message_trace)),
         }
         if states["spike"].sink.in_memory:
@@ -631,6 +672,10 @@ class SpikingChip:
         if states["neuron"].sink.in_memory:
             states["neuron"].memory = NeuronTrace(
                 data={"u": []} if len(c.u_log_labels) else {}
+            )
+        if states["perf"].sink.in_memory:
+            states["perf"].memory = PerfTrace(
+                data={col: [] for col in PERF_COLUMNS}
             )
         if states["message"].sink.in_memory:
             states["message"].memory = MessageTrace()
@@ -645,6 +690,8 @@ class SpikingChip:
                 write_neuron_trace_header(
                     states["neuron"].sink, c.u_log_labels, ("u",)
                 )
+            if states["perf"].sink.stream:
+                write_perf_header(states["perf"].sink, c.perf_col_names)
             if states["message"].sink.stream:
                 write_message_header(states["message"].sink)
         self._trace_states = states
@@ -661,24 +708,30 @@ class SpikingChip:
         buf = fetch.get()
         self.message_processing_wall += time.perf_counter() - fetch_start
         energy_start = time.perf_counter()
-        outputs = decode_packed(
-            buf, packed_layout(engine.plan, length, self.dtype)
-        )
-        cs = outputs["counter_sums"]
-        packets_total = int(cs[1])
-        rd.spikes += int(cs[0])
-        rd.packets_sent += packets_total
-        self.total_messages_sent += packets_total
-        rd.neurons_updated += int(cs[3])
-        rd.neurons_fired += int(cs[4])
-        es = outputs["energy_sums"]
-        rd.synapse_energy += float(es[0])
-        rd.dendrite_energy += float(es[1])
-        rd.soma_energy += float(es[2])
-        rd.network_energy += float(es[3])
-        rd.total_energy += float(es.sum())
+        stats_rows = None  # (counters, energies) per step: the scan's
+        if engine.plan is not None:
+            outputs = decode_packed(
+                buf["packed"], packed_layout(engine.plan, length, self.dtype)
+            )
+            cs = outputs["counter_sums"]
+            packets_total = int(cs[1])
+            rd.spikes += int(cs[0])
+            rd.packets_sent += packets_total
+            self.total_messages_sent += packets_total
+            rd.neurons_updated += int(cs[3])
+            rd.neurons_fired += int(cs[4])
+            es = outputs["energy_sums"]
+            rd.synapse_energy += float(es[0])
+            rd.dendrite_energy += float(es[1])
+            rd.soma_energy += float(es[2])
+            rd.network_energy += float(es[3])
+            rd.total_energy += float(es.sum())
+            sim_times = np.array([outputs["sim_time_sum"]])
+        else:
+            outputs, stats_rows = self._book_stats(buf, rd, length)
+            # timing model
+            sim_times = stats_rows[1][:, 5]
         self.energy_stats_wall += time.perf_counter() - energy_start
-        sim_times = np.array([outputs["sim_time_sum"]])
 
         messages_by_step: list[Optional[list[list[MessageRecord]]]] = [
             None
@@ -763,10 +816,114 @@ class SpikingChip:
         rd.sim_time = acc
 
         self._write_traces(outputs, t0, length, messages_by_step)
+        if stats_rows is not None and traces["perf"].sink.enabled:
+            self._write_perf_rows(outputs, t0, length, *stats_rows,
+                                  sim_times)
         if heartbeat:
             for t in range(t0, t0 + length):
                 if t % heartbeat == 0:
                     print(f"*** Time-step {t} ***")
+
+    def _book_stats(self, outputs: dict, rd: RunData,
+                    length: int) -> tuple:
+        """Book one chunk of the scan's per-step stats rows into RunData
+        (sanafe_tpu/chip.py:1040-1089): counters rounded from the stats,
+        energies from the device sums or, on the float64 parity path with
+        the perf trace, replayed in the reference's float64 accumulation
+        order (ops/exact_energy.py). Returns the outputs, with the spike
+        log derived from the fired masks when the scan left it out, and
+        (counters [T, 5], energies [T, 6])."""
+        c = self.compiled
+        stats = np.asarray(outputs["stats"], dtype=np.float64)
+        counters = np.round(stats[:, :5]).astype(np.int64)
+        energies = stats[:, 5:11]
+        masks = outputs.get("masks_packed")
+        exact = self._exact_energy
+        if exact is not None and masks is not None:
+            n = c.n_neurons
+            en = exact.chunk(
+                np.unpackbits(masks[:, 0, :], axis=1)[:, :n].astype(bool),
+                np.unpackbits(masks[:, 1, :], axis=1)[:, :n].astype(bool),
+            )
+            energies = energies.copy()
+            energies[:, :5] = en
+        packets_total = int(counters[:, 1].sum())
+        rd.spikes += int(counters[:, 0].sum())
+        rd.packets_sent += packets_total
+        self.total_messages_sent += packets_total
+        rd.neurons_updated += int(counters[:, 3].sum())
+        rd.neurons_fired += int(counters[:, 4].sum())
+        if exact is not None and masks is not None:
+            # RunData accumulates per retired timestep, one float64 add
+            # each (src/chip.cpp:410-438)
+            for t in range(length):
+                rd.synapse_energy += energies[t, 0]
+                rd.dendrite_energy += energies[t, 1]
+                rd.soma_energy += energies[t, 2]
+                rd.network_energy += energies[t, 3]
+                rd.total_energy += energies[t, 4]
+        else:
+            rd.synapse_energy += float(energies[:, 0].sum())
+            rd.dendrite_energy += float(energies[:, 1].sum())
+            rd.soma_energy += float(energies[:, 2].sum())
+            rd.network_energy += float(energies[:, 3].sum())
+            rd.total_energy += float(energies[:, 4].sum())
+        if (self._trace_states["spike"].sink.enabled
+                and "spike_log_packed" not in outputs and masks is not None):
+            fired_bits = np.unpackbits(masks[:, 0, :], axis=1)
+            outputs = dict(outputs, spike_log_packed=np.packbits(
+                fired_bits[:, c.spike_log_slots], axis=1))
+        return outputs, (counters, energies)
+
+    def _write_perf_rows(self, outputs: dict, t0: int, length: int,
+                         counters, energies, sim_times) -> None:
+        """perf.csv rows / the in-memory perf trace, one per step
+        (sanafe_tpu/chip.py:1309-1357)."""
+        perf_state = self._trace_states["perf"]
+        opt_values = (
+            np.asarray(outputs["opt_perf"], dtype=np.float64)
+            if "opt_perf" in outputs
+            else None
+        )
+        opt_names = self.compiled.perf_col_names
+        for i in range(length):
+            values = {
+                "timestep": t0 + i,
+                "fired": int(counters[i, 4]),
+                "updated": int(counters[i, 3]),
+                "packets": int(counters[i, 1]),
+                "hops": int(counters[i, 2]),
+                "spikes": int(counters[i, 0]),
+                "sim_time": float(sim_times[i]),
+                "synapse_energy": float(energies[i, 0]),
+                "dendrite_energy": float(energies[i, 1]),
+                "soma_energy": float(energies[i, 2]),
+                "network_energy": float(energies[i, 3]),
+                "total_energy": float(energies[i, 4]),
+            }
+            if opt_values is not None:
+                for k, name in enumerate(opt_names):
+                    values[name] = float(opt_values[i, k])
+            if perf_state.sink.stream:
+                row = (
+                    f"{values['timestep']},{values['fired']},"
+                    f"{values['updated']},{values['packets']},"
+                    f"{values['hops']},{values['spikes']},"
+                    f"{fmt_e(values['sim_time'])},"
+                    f"{fmt_e(values['synapse_energy'])},"
+                    f"{fmt_e(values['dendrite_energy'])},"
+                    f"{fmt_e(values['soma_energy'])},"
+                    f"{fmt_e(values['network_energy'])},"
+                    f"{fmt_e(values['total_energy'])}"
+                )
+                if opt_values is not None:
+                    row += "".join(
+                        f",{fmt_e(values[name])}" for name in opt_names
+                    )
+                perf_state.sink.write(row + "\n")
+            if perf_state.memory is not None:
+                for key, value in values.items():
+                    perf_state.memory.data.setdefault(key, []).append(value)
 
     def _write_traces(self, outputs: dict, t0: int, length: int,
                       messages_by_step: list) -> None:
@@ -971,6 +1128,25 @@ class SpikingChip:
             self._native_failed = True
             return None
         return self._native
+
+    def _get_exact_energy(self):
+        """ExactEnergyModel of the current compiled chip, built once; None
+        when the configuration is outside its supported (standard)
+        shapes."""
+        cached = self._exact_energy_model
+        if cached is not None and cached[0] is self.compiled:
+            return cached[1]
+        from .ops.exact_energy import (
+            ExactEnergyModel,
+            ExactEnergyUnsupported,
+        )
+
+        try:
+            model = ExactEnergyModel(self.compiled)
+        except ExactEnergyUnsupported:
+            model = None
+        self._exact_energy_model = (self.compiled, model)
+        return model
 
     # --- lifecycle -----------------------------------------------------------
     def reset(self) -> None:

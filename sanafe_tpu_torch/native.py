@@ -109,6 +109,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sort_message_trace_order.argtypes = [
         ctypes.POINTER(ctypes.c_int64), u8p, ctypes.c_int32, i32p,
     ]
+    lib.serial_keyed_sum_f64.restype = None
+    lib.serial_keyed_sum_f64.argtypes = [f64p, i32p, ctypes.c_int64, f64p]
     i64p = ctypes.POINTER(ctypes.c_int64)
     lib.format_spike_rows.restype = ctypes.c_int64
     lib.format_spike_rows.argtypes = [
@@ -164,6 +166,30 @@ def format_spike_rows(
         return None
     data = out[:n].tobytes()
     return data if as_bytes else data.decode("utf-8")
+
+
+def serial_keyed_sum(values: "np.ndarray", keys: "np.ndarray",
+                     n_keys: int) -> "np.ndarray":
+    """out[k] = sum of values[i] with keys[i]==k, accumulated one float64
+    add per event IN INDEX ORDER (numpy reductions are pairwise and do not
+    reproduce the reference's serial rounding). Keys < 0 are skipped.
+    Falls back to a Python loop when the native library is unavailable."""
+    values = np.ascontiguousarray(values, dtype=np.float64)
+    keys = np.ascontiguousarray(keys, dtype=np.int32)
+    out = np.zeros(n_keys, dtype=np.float64)
+    try:
+        lib = get_library()
+    except NativeUnavailable:
+        acc = out.tolist()
+        for k, v in zip(keys.tolist(), values.tolist()):
+            if k >= 0:
+                acc[k] += v
+        return np.asarray(acc)
+    lib.serial_keyed_sum_f64(
+        _ptr(values, ctypes.c_double), _ptr(keys, ctypes.c_int32),
+        np.int64(len(values)), _ptr(out, ctypes.c_double),
+    )
+    return out
 
 
 def sort_message_trace_order(mids, placeholders) -> "np.ndarray":

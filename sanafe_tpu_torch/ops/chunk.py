@@ -27,12 +27,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import os
-import shutil
-import subprocess
-import time
 from dataclasses import dataclass
-from pathlib import Path
 from typing import Any, Optional
 
 import numpy as np
@@ -40,6 +35,8 @@ import torch
 
 from ..arch import NeuronResetMode
 from ..models import SOMA_MODEL_INPUT, SOMA_MODEL_LIF, SOMA_MODEL_TRUENORTH
+from .cuda_build import CHUNK, load
+from .step import dense_delivery_fits
 
 LANE = 128
 
@@ -118,7 +115,7 @@ def plan_chunk(prog) -> Optional[ChunkPlan]:
     JAX kernel is float32-only, the port's plain version also runs
     float64)."""
     c = prog.compiled
-    if not prog.dense_delivery:
+    if not dense_delivery_fits(c):
         return None
     if c.plugin_specs:
         return None
@@ -634,61 +631,9 @@ def chunk_plain(plan: ChunkPlan, mats: dict, state: torch.Tensor, t0: int,
 
 # --- the CUDA kernel -------------------------------------------------------
 
-_PKG_DIR = Path(__file__).resolve().parent.parent
-_KERNEL_SRC = _PKG_DIR / "csrc" / "chunk_kernel.cu"
-_BUILD_DIR = _PKG_DIR / "build"
-_KERNEL_LIB = _BUILD_DIR / "libsanafe_chunk.so"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    # no FMA contraction: u*decay + cur and v*leak + ... must round as two
-    # operations, as in the JAX kernel and the plain version; never
-    # --use_fast_math, which would also break the Kahan compensation
-    "-fmad=false",
-    "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
-]
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = Path(home) / "bin" / "nvcc"
-    if not path.exists():
-        raise RuntimeError(
-            "nvcc not found (neither on PATH nor under CUDA_HOME); the "
-            "chunk kernel is built from csrc/chunk_kernel.cu at first use"
-        )
-    return str(path)
-
-
-def build_library() -> float:
-    """Compile ``csrc/chunk_kernel.cu`` into ``build/`` unless an up-to-date
-    library is there; returns the seconds spent compiling (0 when cached).
-    The compiler's resource report (registers, shared memory, spills) is
-    kept in ``build/libsanafe_chunk.log``."""
-    if (_KERNEL_LIB.exists()
-            and _KERNEL_LIB.stat().st_mtime >= _KERNEL_SRC.stat().st_mtime):
-        return 0.0
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = _KERNEL_LIB.with_name(f"{_KERNEL_LIB.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_KERNEL_SRC)]
-    start = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - start
-    _KERNEL_LIB.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stderr}"
-        )
-    os.replace(tmp, _KERNEL_LIB)
-    return seconds
-
-
 @functools.cache
 def _library() -> ctypes.CDLL:
-    build_library()
-    lib = ctypes.CDLL(str(_KERNEL_LIB))
+    lib = load(CHUNK)
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.sanafe_chunk_launch.restype = i32
     lib.sanafe_chunk_launch.argtypes = (
@@ -719,8 +664,8 @@ def chunk_kernel(plan: ChunkPlan, mats: dict, state: torch.Tensor, t0: int,
         raise ValueError(f"chunk_kernel: unsupported device {state.device}")
     if state.dtype != torch.float32:
         raise NotImplementedError(
-            "chunk_kernel runs float32 only; float64 on CUDA waits for the "
-            "port of the step scan (ROADMAP.md section 1)"
+            "chunk_kernel runs float32 only; float64 on CUDA runs the step "
+            "scan (ops/scan.py)"
         )
     if 2 * plan.npad > 1024:
         raise ValueError(f"chunk_kernel: Npad {plan.npad} exceeds 512")

@@ -149,6 +149,19 @@ class NeuronTrace:
 
 
 @dataclass
+class PerfTrace:
+    """column -> list of per-timestep values (src/pytrace.hpp:247-278)."""
+
+    data: dict[str, list] = field(default_factory=dict)
+
+    def __getitem__(self, name):
+        return self.data[name]
+
+    def keys(self):
+        return self.data.keys()
+
+
+@dataclass
 class MessageTrace:
     """Per-timestep lists of message dicts sorted by mid
     (src/pytrace.hpp:321-364)."""
@@ -165,6 +178,22 @@ class MessageTrace:
         return self.data[i]
 
 
+PERF_COLUMNS = (
+    "timestep",
+    "fired",
+    "updated",
+    "packets",
+    "hops",
+    "spikes",
+    "sim_time",
+    "synapse_energy",
+    "dendrite_energy",
+    "soma_energy",
+    "network_energy",
+    "total_energy",
+)
+
+
 def write_spike_header(sink: TraceSink) -> None:
     sink.write("neuron,timestep\n")
 
@@ -174,6 +203,11 @@ def write_potential_header(sink: TraceSink, labels) -> None:
     for group_name, offset in labels:
         parts.append(f"neuron {group_name}.{offset}")
     sink.write(",".join(parts) + ",\n")
+
+
+def write_perf_header(sink: TraceSink, optional_columns=()) -> None:
+    columns = list(PERF_COLUMNS) + list(optional_columns)
+    sink.write(",".join(columns) + "\n")
 
 
 def write_neuron_trace_header(sink: TraceSink, labels, trace_names) -> None:

@@ -12,7 +12,9 @@ the CPU (the plain version of the chunk kernel) against sanafe_tpu.
   another order).
 - State carried from a sanafe_tpu checkpoint into the port.
 - The port imports and runs with jax, sanafe_tpu and yaml unavailable.
-- Requests outside the slice raise NotImplementedError.
+- Chips the whole-chunk engine refuses and the perf trace run on the step
+  scan (tests/test_torch_scan.py holds the scan to sanafe_tpu's).
+- Requests outside the port so far raise NotImplementedError.
 """
 
 import os
@@ -236,19 +238,27 @@ def test_state_carried_from_jax_checkpoint(f32, tmp_path):
 
 
 def test_port_runs_without_jax():
-    """sanafe_tpu_torch imports and simulates with jax, sanafe_tpu and yaml
-    blocked, and loads none of them."""
+    """sanafe_tpu_torch imports and simulates, on both engines, with jax,
+    sanafe_tpu and yaml blocked, and loads none of them."""
     code = """
 import sys
 for name in ("jax", "jaxlib", "sanafe_tpu", "yaml"):
     sys.modules[name] = None
+import torch
 import sanafe_tpu_torch as st
+from sanafe_tpu_torch.ops import cuda_build, delivery, exact_energy, scan
 arch, net = st.load_example()
 chip = st.SpikingChip(arch, device="cpu")
 chip.load(net)
 result = chip.sim(20, heartbeat=0)
 assert result["device_engine"] == "chunk_plain", result["device_engine"]
 assert result["timesteps_executed"] == 20
+chip = st.SpikingChip(arch, device="cpu", dtype=torch.float64)
+chip.load(net)
+perf = chip.sim(20, heartbeat=0, perf_trace=True)
+assert perf["device_engine"] == "scan", perf["device_engine"]
+assert perf["spikes"] == result["spikes"]
+assert len(perf["perf_trace"]["fired"]) == 20
 loaded = [m for m in sys.modules if sys.modules[m] is not None and (
     m.split(".")[0] in ("jax", "jaxlib", "yaml") or m.startswith("sanafe_tpu.")
 )]
@@ -271,20 +281,106 @@ def _too_big(mod):
                        n_log_potential=0)
 
 
+def _plugin_soma(mod):
+    """The example chip with its somas swapped for a plugin model."""
+    arch, net = example_chip(mod)
+    for core in arch.cores():
+        for unit in core.pipeline_hw:
+            if unit.implements_soma:
+                unit.model_info.plugin_library_path = "libhh.so"
+                unit.model_info.name = "hodgkin_huxley_plugin"
+    return arch, net
+
+
+def _conv_chip(mod):
+    """A conv2d hyperedge lowered through the structured (bulk) path, so
+    sanafe_tpu would deliver it by a strided convolution."""
+    Attribute = mod.Attribute
+    arch = mod.load_loihi()
+    net = mod.SpikingNetwork("conv")
+    layer = mod.NeuronConfiguration(model_attributes={
+        "threshold": Attribute(2.0), "bias": Attribute(1.0)})
+    g0 = net.create_neuron_group("g0", 2 * 8 * 8, layer)
+    g1 = net.create_neuron_group("g1", 3 * 6 * 6, layer)
+    g0.connect_neurons_conv2d(
+        g1, {"weight": [Attribute(1.0)] * (3 * 3 * 2 * 3)},
+        mod.network.Conv2DParameters(
+            input_width=8, input_height=8, input_channels=2, kernel_width=3,
+            kernel_height=3, kernel_count=3),
+    )
+    cores = arch.cores()
+    for g, core in ((g0, cores[0]), (g1, cores[1])):
+        for neuron in g:
+            neuron.map_to_core(core)
+    return arch, net
+
+
 @pytest.mark.parametrize("request_kind", [
-    "perf_trace", "device_sweep", "mesh", "ineligible_chip",
+    "plugin_soma", "device_sweep", "mesh", "conv_delivery",
 ])
-def test_requests_outside_the_slice_raise(tmp_path, request_kind):
-    builder = _too_big if request_kind == "ineligible_chip" else example_chip
-    chip = loaded(st, builder, device="cpu")
+def test_requests_outside_the_slice_raise(tmp_path, monkeypatch,
+                                          request_kind):
     kwargs = {
-        "perf_trace": {"perf_trace": True},
+        "plugin_soma": {},
         "device_sweep": {"device_sweep": True},
         "mesh": {"mesh": object()},
-        "ineligible_chip": {},
+        # float64 keeps the chip off the fused dense delivery
+        "conv_delivery": {"perf_trace": True},
     }[request_kind]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        chip.sim(10, heartbeat=0, **kwargs)
+        if request_kind == "plugin_soma":
+            loaded(st, _plugin_soma, device="cpu")
+        elif request_kind == "conv_delivery":
+            import sanafe_tpu_torch.network as port_network
+
+            monkeypatch.setattr(port_network, "BULK_EDGE_THRESHOLD", 1)
+            chip = loaded(st, _conv_chip, device="cpu", dtype=torch.float64)
+            assert chip.compiled.conv_specs
+            chip.sim(10, heartbeat=0, **kwargs)
+        else:
+            chip = loaded(st, example_chip, device="cpu")
+            chip.sim(10, heartbeat=0, **kwargs)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ineligible_chip_runs_on_the_scan(f64, dtype):
+    """A chip over the whole-chunk engine's 384 neurons runs on the step
+    scan, in both dtypes, with the same rasters and counters as
+    sanafe_tpu's float64 scan."""
+    a = loaded(sf, _too_big).sim(60, heartbeat=0, spike_trace=True)
+    b = loaded(st, _too_big, device="cpu", dtype=dtype).sim(
+        60, heartbeat=0, spike_trace=True)
+    assert b["device_engine"] == "scan"
+    assert a["spikes"] > 0
+    assert_match(a, b, 1e-12 if dtype == torch.float64 else 1e-6)
+    assert [[(n.group_name, n.neuron_offset) for n in step]
+            for step in a["spike_trace"].data] == [
+        [(n.group_name, n.neuron_offset) for n in step]
+        for step in b["spike_trace"].data]
+
+
+@pytest.mark.parametrize("timing_model", ["detailed", "simple"])
+def test_perf_trace_runs_on_the_scan(f64, tmp_path, timing_model):
+    """The perf trace takes the step scan; perf.csv is byte-identical to
+    sanafe_tpu's in float64 (exact per-event energies), and the chip's
+    state carries across engines within one chip."""
+    files = []
+    for mod, kw in ((sf, {}), (st, {"device": "cpu",
+                                    "dtype": torch.float64})):
+        chip = loaded(mod, example_chip, **kw)
+        path = tmp_path / f"{mod.__name__}_perf.csv"
+        result = chip.sim(30, timing_model=timing_model, heartbeat=0,
+                          chunk=30)
+        perf = chip.sim(30, timing_model=timing_model, heartbeat=0,
+                        chunk=30, perf_trace=path)
+        chip.close()
+        files.append(path.read_bytes())
+        if mod is st:
+            assert result["device_engine"] == "chunk_plain"
+            assert perf["device_engine"] == "scan"
+    assert files[0] == files[1]
+    assert files[1].startswith(b"timestep,fired,updated,packets,hops")
+    assert files[1].count(b"\n") == 31
 
 
 def test_yaml_front_ends_raise(tmp_path):
