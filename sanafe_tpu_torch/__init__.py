@@ -4,29 +4,35 @@ The port of ``sanafe_tpu`` (JAX, written for a TPU) to PyTorch on an NVIDIA
 H100. It imports ``torch`` and never ``jax`` or ``sanafe_tpu``: the JAX-free
 host modules (builder API, compiler, trace writers, timing replica, native
 scheduler bindings) are carried as copies, and the device path is the
-whole-chunk engine of ``ops/chunk.py`` with its hand-written Hopper kernel
-``csrc/chunk_kernel.cu``.
+whole-chunk engine of ``ops/chunk.py`` and the step scan of ``ops/scan.py``,
+with hand-written Hopper kernels under ``csrc/``.
 
-The same builder API and ``SpikingChip.load()/sim()`` surface as
-``sanafe_tpu``; the YAML and netlist front-ends are not ported yet.
+The same builder API, YAML and netlist front-ends (``load_arch``,
+``load_net``, ``SpikingNetwork.save``; YAML needs PyYAML, imported when a
+description is read) and ``SpikingChip.load()/sim()`` surface as
+``sanafe_tpu``.
 """
 
 from ._examples import load_example, load_loihi, load_truenorth
-from .arch import Architecture
+from .arch import Architecture, load_arch
 from .attributes import Attribute
 from .chip import RunData, SpikingChip
-from .network import NeuronConfiguration, SpikingNetwork
+from .network import NeuronConfiguration, SpikingNetwork, load_net
 from .network import SpikingNetwork as Network
+from .yaml_arch import DescriptionParsingError
 
 __all__ = [
     "Architecture",
     "Attribute",
+    "DescriptionParsingError",
     "Network",
     "NeuronConfiguration",
     "RunData",
     "SpikingChip",
     "SpikingNetwork",
+    "load_arch",
     "load_example",
     "load_loihi",
+    "load_net",
     "load_truenorth",
 ]

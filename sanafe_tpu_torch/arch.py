@@ -269,11 +269,9 @@ class Architecture:
 
 
 def load_arch(path: str | Path) -> Architecture:
-    """Load a YAML architecture description (src/arch.cpp:106-117).
+    """Load a YAML architecture description (src/arch.cpp:106-117)."""
+    from .yaml_arch import parse_arch_file
 
-    The YAML front-end is not ported yet: build architectures with the
-    builder API (``Architecture``, ``load_loihi``, ``load_truenorth``)."""
-    raise NotImplementedError(
-        f"load_arch({str(path)!r}): the YAML front-end is not ported to "
-        "sanafe_tpu_torch yet (ROADMAP.md section 1, 'YAML and netlist front-ends')"
-    )
+    path = Path(path)
+    with path.open("r") as stream:
+        return parse_arch_file(stream)

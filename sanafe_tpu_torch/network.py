@@ -679,21 +679,27 @@ class SpikingNetwork:
     def save(self, path: str | Path, use_netlist_format: bool = False) -> None:
         """Serialize network + mappings back to YAML or netlist
         (src/network.hpp:165-178)."""
-        raise NotImplementedError(
-            f"SpikingNetwork.save({str(path)!r}): the YAML and netlist "
-            "writers are not ported to sanafe_tpu_torch yet "
-            "(ROADMAP.md section 1, 'YAML and netlist front-ends')"
-        )
+        path = Path(path)
+        if use_netlist_format:
+            from .netlist import write_netlist
+
+            write_netlist(path, self)
+        else:
+            from .yaml_snn import write_network_yaml
+
+            write_network_yaml(path, self)
 
 
 def load_net(
     path: str | Path, arch: Architecture, use_netlist_format: bool = False
 ) -> SpikingNetwork:
-    """Load an SNN + mapping description (src/network.cpp:194-222).
+    """Load an SNN + mapping description (src/network.cpp:194-222)."""
+    path = Path(path)
+    with path.open("r") as stream:
+        if use_netlist_format:
+            from .netlist import parse_netlist_file
 
-    The YAML and netlist front-ends are not ported yet: build networks with
-    the builder API (``SpikingNetwork.create_neuron_group`` and friends)."""
-    raise NotImplementedError(
-        f"load_net({str(path)!r}): the YAML and netlist front-ends are not "
-        "ported to sanafe_tpu_torch yet (ROADMAP.md section 1, 'YAML and netlist front-ends')"
-    )
+            return parse_netlist_file(stream, arch)
+        from .yaml_snn import parse_network_file
+
+        return parse_network_file(stream, arch)

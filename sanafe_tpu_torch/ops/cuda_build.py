@@ -22,8 +22,9 @@ _PKG_DIR = Path(__file__).resolve().parent.parent
 _BUILD_DIR = _PKG_DIR / "build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    # no FMA contraction: u*decay + cur and v*leak + ... must round as two
-    # operations, as in the JAX code and the plain versions; never
+    # no FMA contraction: u*decay + cur, v*leak + ... and the sweep's
+    # (flow - cap) * mean + t must round as two operations, as in the JAX
+    # code and the plain versions; never
     # --use_fast_math, which would also break the Kahan compensation
     "-fmad=false",
     "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
@@ -55,6 +56,8 @@ class KernelLibrary:
 
 CHUNK = KernelLibrary("chunk")
 DELIVERY = KernelLibrary("delivery")
+MERGE = KernelLibrary("merge")
+ALL = (CHUNK, DELIVERY, MERGE)
 
 
 def _nvcc() -> str:

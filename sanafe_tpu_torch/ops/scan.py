@@ -16,9 +16,15 @@ sanafe_tpu's scan:
 
 Fused-roll-up programs without dense delivery emit the fired/updated planes
 from the loop and run one batched roll-up after it (``rollup_stats``), as
-sanafe_tpu does. The mask wire, the sparse spike wire and the device sweep
-of ``make_scan`` are not ported (ROADMAP.md section 1, "Not ported", and
-section 2, kernel 2).
+sanafe_tpu does. With a device sweep (``make_scan(device_sweep=True)``: the
+merge sweep of ``ops/merge_sweep.py``), the sweep runs after the loop on the
+chunk's masks, still on the device, and adds
+
+- ``sim_device`` [T] program dtype: each step's detailed-timing sim_time;
+- ``sweep_overflow`` [T] bool: the steps the host must sweep instead.
+
+The mask wire and the sparse spike wire of ``make_scan`` worked around the
+TPU's host link and are not ported (ROADMAP.md section 1, "Not ported").
 
 Every step launches a few dozen small ops, so a small chip is bound by
 launch overhead here; capturing the step in a CUDA graph is later work.
@@ -27,11 +33,12 @@ launch overhead here; capturing the step in a CUDA graph is later work.
 from __future__ import annotations
 
 import contextlib
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
+from .device_sweep import unpack_masks
 from .step import DeviceProgram, _timestep
 
 
@@ -43,7 +50,14 @@ def rollup_stats(prog: DeviceProgram, a, fired_f, upd_f):
     (src/schedule.cpp:61-102). Returns ``(stats [T, 11], opt_perf or
     None)``."""
     lhs = torch.cat([fired_f, upd_f], dim=1)
-    r = lhs @ a["rollup_matrix"] + a["rollup_const"][None]
+    # the product in float64, rounded once: a float32 GEMM's accumulation
+    # order follows the kernel cuBLAS picks for the shape, so the chunk
+    # length moved the energies (on an H100, a 4096-neuron chip's soma
+    # energy came out up to 1.6e-5 from float64 as one 1024-step product,
+    # 2.4e-7 as eight 128-step ones; scripts/h100_sweep_probe.py)
+    matrix = a["rollup_matrix"]
+    r = (lhs.double() @ matrix.double()).to(matrix.dtype) + (
+        a["rollup_const"][None])
     n_cores = prog.compiled.n_cores
     lat0, msg0 = 9, 9 + n_cores
     opt0 = msg0 + n_cores
@@ -72,11 +86,13 @@ def _full_float32_matmul():
 
 
 def run_scan(prog: DeviceProgram, state: dict, t0: int, length: int,
-             feeds: Optional[dict] = None):
+             feeds: Optional[dict] = None, sweep: Optional[Callable] = None):
     """Run ``length`` timesteps from 1-based step ``t0``: returns the state
     after the last step and the named per-step outputs (module docstring),
     all on the program's device. ``feeds`` holds the host inputs of the
-    chunk as ``[length, k]`` arrays (``tn_noise``, ``poisson``)."""
+    chunk as ``[length, k]`` arrays (``tn_noise``, ``poisson``). ``sweep``
+    (a ``make_merge_sweep`` function; the program must record the masks)
+    sweeps the chunk's steps on the device."""
     dev = prog.device
     a = prog.arrays
     defer_rollup = prog.fused_rollup and not prog.dense_delivery
@@ -102,4 +118,9 @@ def run_scan(prog: DeviceProgram, state: dict, t0: int, length: int,
             outputs["stats"] = stats
             if opt_perf is not None:
                 outputs["opt_perf"] = opt_perf
+    if sweep is not None and length:
+        fired, updated = unpack_masks(outputs["masks_packed"],
+                                      prog.compiled.n_neurons)
+        outputs["sim_device"], outputs["sweep_overflow"] = sweep(fired,
+                                                                 updated)
     return state, outputs

@@ -706,7 +706,7 @@ def _timestep(prog: DeviceProgram, a, state, t: int, feeds=None,
         fired = fired | (is_input & fired_input)
     if c.plugin_specs:
         raise _not_ported("plugin soma models in the step scan",
-                          "ROADMAP.md section 1, item 5, 'Plugin models'")
+                          "ROADMAP.md section 1, 'Plugin models'")
 
     updated_or_fired = updated | fired
     fired_f = fired.to(dtype)
@@ -726,7 +726,7 @@ def _timestep(prog: DeviceProgram, a, state, t: int, feeds=None,
     elif prog.conv_delivery:
         raise _not_ported(
             "conv2d hyperedge delivery (ConvDelivery) in the step scan",
-            "ROADMAP.md section 1, item 3, 'DAG/conv engine'",
+            "ROADMAP.md section 1, 'DAG/conv engine'",
         )
     elif prog.block is not None:
         buffer_current, any_input = _block_deliver(prog, a, fired_f, n)
@@ -1004,5 +1004,5 @@ def _scatter_delivery(prog: DeviceProgram, a, c, state, fired, n: int):
 
     if c.has_plugin_comp:
         raise _not_ported("plugin dendrite compartments in the step scan",
-                          "ROADMAP.md section 1, item 5, 'Plugin models'")
+                          "ROADMAP.md section 1, 'Plugin models'")
     return buffer_current, any_input, state_delay_ring, state_tap_voltages

@@ -20,7 +20,7 @@ import torch
 
 import sanafe_tpu_torch as st
 
-from test_torch_chips import delay_chip, multitap_chip
+from test_torch_chips import delay_chip, multitap_chip, random_chip
 
 STEPS = 200
 N = 2048  # enough fan-in that bins add several values each step
@@ -63,3 +63,25 @@ def test_scatter_scan_on_cuda_matches_cpu(cuda, builder, dtype):
             assert abs(x - y) <= 1e-12 * max(abs(y), 1e-30), key
         else:
             assert abs(x - ref) <= abs(y - ref) + 1e-6 * abs(ref), key
+
+
+@pytest.mark.cuda
+def test_float32_energies_of_a_long_chunk(cuda):
+    """The scan's batched roll-up over a 1024-step chunk keeps each step's
+    float32 energies within 1e-6 relative of a float64 run (a float32 GEMM
+    of that shape put the soma energy up to 1.6e-5 off; the product now
+    runs in float64 and rounds once)."""
+    runs = []
+    for dtype in (torch.float32, torch.float64):
+        arch, net = random_chip(st, cores=32, neurons_per_core=128,
+                                n_log_potential=0)
+        chip = st.SpikingChip(arch, device=cuda, dtype=dtype)
+        chip.load(net)
+        runs.append(chip.sim(1024, timing_model="simple", heartbeat=0,
+                             perf_trace=True, chunk=1024))
+    a, b = (r["perf_trace"] for r in runs)
+    assert a["fired"] == b["fired"]
+    for key in ("synapse_energy", "soma_energy", "network_energy",
+                "total_energy"):
+        x, y = np.asarray(a[key]), np.asarray(b[key])
+        assert np.all(np.abs(x - y) <= 1e-6 * np.abs(y)), key

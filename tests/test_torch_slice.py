@@ -246,7 +246,10 @@ for name in ("jax", "jaxlib", "sanafe_tpu", "yaml"):
     sys.modules[name] = None
 import torch
 import sanafe_tpu_torch as st
-from sanafe_tpu_torch.ops import cuda_build, delivery, exact_energy, scan
+from sanafe_tpu_torch.ops import (cuda_build, delivery, device_sweep,
+                                  exact_energy, merge_sweep, scan)
+from sanafe_tpu_torch import netlist, yaml_arch, yaml_io, yaml_snn
+from sanafe_tpu_torch.utils import ranges
 arch, net = st.load_example()
 chip = st.SpikingChip(arch, device="cpu")
 chip.load(net)
@@ -259,6 +262,8 @@ perf = chip.sim(20, heartbeat=0, perf_trace=True)
 assert perf["device_engine"] == "scan", perf["device_engine"]
 assert perf["spikes"] == result["spikes"]
 assert len(perf["perf_trace"]["fired"]) == 20
+swept = chip.sim(20, heartbeat=0, device_sweep=True)
+assert swept["device_engine"] == "scan" and swept["sim_time"] > 0
 loaded = [m for m in sys.modules if sys.modules[m] is not None and (
     m.split(".")[0] in ("jax", "jaxlib", "yaml") or m.startswith("sanafe_tpu.")
 )]
@@ -322,7 +327,9 @@ def test_requests_outside_the_slice_raise(tmp_path, monkeypatch,
                                           request_kind):
     kwargs = {
         "plugin_soma": {},
-        "device_sweep": {"device_sweep": True},
+        # the device sweep runs in the port; of a program sharded over a
+        # mesh it does not
+        "device_sweep": {"device_sweep": True, "mesh": object()},
         "mesh": {"mesh": object()},
         # float64 keeps the chip off the fused dense delivery
         "conv_delivery": {"perf_trace": True},
@@ -383,17 +390,24 @@ def test_perf_trace_runs_on_the_scan(f64, tmp_path, timing_model):
     assert files[1].count(b"\n") == 31
 
 
-def test_yaml_front_ends_raise(tmp_path):
+def test_yaml_front_ends_raise(tmp_path, monkeypatch):
+    """The YAML front-ends are ported; without PyYAML, reading a YAML
+    description raises ImportError naming it, while writing one needs no
+    PyYAML."""
     from sanafe_tpu_torch.arch import load_arch
     from sanafe_tpu_torch.network import load_net
 
     arch, net = st.load_example()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    net.save(tmp_path / "snn.yaml")
+    (tmp_path / "arch.yaml").write_text("architecture: {}\n")
+    monkeypatch.setitem(sys.modules, "yaml", None)
+    with pytest.raises(ImportError, match="PyYAML"):
         load_arch(tmp_path / "arch.yaml")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ImportError, match="PyYAML"):
         load_net(tmp_path / "snn.yaml", arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        net.save(tmp_path / "snn.yaml")
+    net.save(tmp_path / "again.yaml")
+    assert (tmp_path / "again.yaml").read_text() == (
+        tmp_path / "snn.yaml").read_text()
 
 
 def test_device_is_never_moved_to_the_cpu():
