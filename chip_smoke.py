@@ -12,21 +12,27 @@ own line:
 2. chunk kernel vs plain: the whole-chunk kernel against its plain PyTorch
    version (chunk_plain, on CPU copies of the same inputs) on three chips:
    the 384-neuron TCAD'25 random network (1000 steps), the bundled example
-   chip and a small TrueNorth chip with LFSR noise. Counters, mask bytes and
-   spike-log bytes must be equal; energy and sim_time sums within 1e-6
-   relative; potentials, u and the state within 1e-6 * max(1, |v|);
+   chip and a small TrueNorth chip with LFSR noise; the random network
+   again on a cluster of 5 CTAs (its columns do not divide evenly) and of 1,
+   and over a chunk of a single step. Counters, mask bytes and spike-log
+   bytes must be equal; energy and sim_time sums within 1e-6 relative;
+   potentials, u and the state within 1e-6 * max(1, |v|); every run of one
+   chip must give the same bits whatever the cluster size;
 3. the small-chip path end to end: SpikingChip(device="cuda") on the random
    chip, detailed timing with spike and potential traces, then simple
    timing; the chunk kernel must have run (launch count > 0) and the
    results must equal a device="cpu" run of the same chip (the detailed
    sim_time exactly: it is the same host sweep over the same masks);
 4. chunk timing: timesteps/s of the kernel and of chunk_plain on CUDA
-   tensors;
+   tensors on the random network, the kernel's on the example chip, and
+   the host's wall split of a simple run through SpikingChip;
 5. delivery kernel vs plain: the activity-gated delivery kernel against
    delivery_plain on the same card tensors, on the blocks of the TCAD'25
    "full" random network (128 cores x 256 neurons, float32) and of a
    4096-neuron random chip (float64), with no, one tile's, 25% and all
-   neurons fired: currents (integer weights) and counts equal;
+   neurons fired, and with every other source tile fired whole and the
+   rest silent: currents equal (integer weights) and the kernel's arrivals
+   equal to delivery_plain's counts > 0;
 6. the step scan at full width: SpikingChip(device="cuda") on the full
    random network, 1000 steps simple then 200 steps detailed with the spike
    trace; the engine must be the scan and the delivery kernel must have
@@ -40,7 +46,10 @@ own line:
 8. delivery timing: the kernel's ms per step beside delivery_plain's on
    CUDA tensors, on the full-width chip's fired pattern at step 50, and
    beside one torch.mm of that fired row against the chip's dense weight
-   matrix (the library call computing the same currents; timed only);
+   matrix (the library call computing the same currents; timed only); the
+   bound from the bytes the kernel has to read (fired weight rows and one
+   arrival bit a cell), beside the bound of the earlier kernel's bytes (a
+   count byte a cell);
 9. merge kernel vs plain: the detailed-timing merge kernel against
    merge_plain on the same card tensors (message tables built once by
    build_messages): example (float64), random384 (float32, float64), the
@@ -94,7 +103,7 @@ SCAN_DETAILED_STEPS = 200
 SCAN_PROFILE_STEPS = 100
 SCAN_COMPARE_STEPS = 50
 CPU_STEPS = 200
-PATTERNS = ("none", "one_tile", "25pct", "all")
+PATTERNS = ("none", "one_tile", "25pct", "all", "mixed")
 MERGE_PLAIN_FULL_STEPS = 16
 SWEEP_MID_STEPS = 1024
 SWEEP_FULL_STEPS = 200
@@ -261,9 +270,9 @@ class ChunkCase:
                                          feeds)
         self.n_steps = n_steps
 
-    def run(self, fn):
+    def run(self, fn, **kwargs):
         rows_out, packed = fn(self.plan, self.mats, self.rows, 1,
-                              self.n_steps, *self.planes)
+                              self.n_steps, *self.planes, **kwargs)
         return rows_out, packed
 
     def decode(self, rows_out, packed):
@@ -429,7 +438,8 @@ def device_busy(prof) -> tuple:
 
 def fired_tiles(blk, n: int, pattern: str, dtype, device):
     """A [n_tiles, tile] 0/1 fired plane: no neuron, a seeded half of one
-    source tile, a seeded 25%, or every neuron."""
+    source tile, a seeded 25%, every neuron, or ("mixed") every other
+    source tile fired whole and the rest silent."""
     import torch
 
     rng = np.random.default_rng(7)
@@ -441,13 +451,18 @@ def fired_tiles(blk, n: int, pattern: str, dtype, device):
         fired[:n] = rng.random(n) < 0.25
     elif pattern == "all":
         fired[:n] = True
+    elif pattern == "mixed":
+        fired = np.repeat(np.arange(blk.n_tiles) % 2 == 0, blk.tile)
+        fired[n:] = False
     return torch.from_numpy(fired).to(device=device, dtype=dtype).view(
         blk.n_tiles, blk.tile)
 
 
-def delivery_args(blk, x):
-    return (x, blk.weights, blk.counts, blk.src_tiles, blk.dest_offsets,
-            blk.max_blocks_per_dest)
+def delivery_args(blk, x, plane=None):
+    """delivery_plain's arguments or, with the packed arrival ``plane``,
+    delivery_kernel's."""
+    return (x, blk.weights, blk.counts if plane is None else plane,
+            blk.src_tiles, blk.dest_offsets, blk.max_blocks_per_dest)
 
 
 def compare_results(a: dict, b: dict, name: str) -> None:
@@ -673,11 +688,12 @@ def run(tmp: Path) -> int:
     # --- 2. chunk kernel vs plain, on the same inputs ---
     chunk_err = 0.0
     chips = [
-        ("random384", random_chip(st), STEPS),
-        ("example", st.load_example(), STEPS),
-        ("truenorth_lfsr", truenorth_chip(st), STEPS),
+        ("random384", random_chip(st), STEPS, (None, 5, 1)),
+        ("random384", random_chip(st), 1, (None, 5)),
+        ("example", st.load_example(), STEPS, (None, 3)),
+        ("truenorth_lfsr", truenorth_chip(st), STEPS, (None,)),
     ]
-    for name, (arch, net), n_steps in chips:
+    for name, (arch, net), n_steps, clusters in chips:
         compiled = compile_chip(arch, net)
         feeds = {}
         if compiled.tn_noise_slots is not None and len(
@@ -689,16 +705,26 @@ def run(tmp: Path) -> int:
         plain = ChunkCase(compiled, "cpu", feeds, n_steps)
         kern = ChunkCase(compiled, cuda, feeds, n_steps)
         a = plain.decode(*plain.run(chunk.chunk_plain))
-        b = kern.decode(*kern.run(chunk.chunk_kernel))
-        torch.cuda.synchronize()
-        err = compare_chunks(a, b, name)
-        chunk_err = max(chunk_err, err)
-        print(f"chunk_kernel_vs_plain: {name} n={compiled.n_neurons} "
-              f"npad={kern.plan.npad} M={kern.plan.m_cols} T={n_steps} "
-              f"spikes={int(b['counter_sums'][0])} "
-              f"fired={int(b['counter_sums'][4])} max_abs_err={err} "
-              f"(exact counters/masks/spike bytes; sums rel {REL_TOL}; "
-              f"v,u,state {V_TOL}*max(1,|v|)) OK")
+        first = None
+        for size in clusters:
+            b = kern.decode(*kern.run(chunk.chunk_kernel, cluster=size))
+            torch.cuda.synchronize()
+            err = compare_chunks(a, b, name)
+            chunk_err = max(chunk_err, err)
+            first = first or b
+            check(all(np.array_equal(first[k], b[k]) for k in b),
+                  f"{name}: cluster {size} differs in bits from cluster "
+                  f"{clusters[0]}")
+            used = size or chunk.default_cluster(kern.plan)
+            print(f"chunk_kernel_vs_plain: {name} n={compiled.n_neurons} "
+                  f"npad={kern.plan.npad} M={kern.plan.m_cols} T={n_steps} "
+                  f"cluster={used} ({kern.plan.m_cols // 4} column chunks, "
+                  f"{'even' if kern.plan.m_cols // 4 % used == 0 else 'ragged'}"
+                  f" slices) spikes={int(b['counter_sums'][0])} "
+                  f"fired={int(b['counter_sums'][4])} max_abs_err={err} "
+                  f"(exact counters/masks/spike bytes; sums rel {REL_TOL}; "
+                  f"v,u,state {V_TOL}*max(1,|v|); bits equal across cluster "
+                  f"sizes) OK")
 
     # --- 3. the small-chip path end to end through the user API ---
     def e2e(device):
@@ -717,13 +743,20 @@ def run(tmp: Path) -> int:
             "sweep": chip.scheduler_wall,
             "sums": chip.energy_stats_wall,
         }
+        wall_names = {"launch": "neuron_processing_wall",
+                      "fetch": "message_processing_wall",
+                      "sums": "energy_stats_wall", "setup": "setup_wall"}
+        chip.sim(STEPS, timing_model="simple", heartbeat=0)  # warm
+        before = {k: getattr(chip, v) for k, v in wall_names.items()}
         t = time.perf_counter()
         simple = chip.sim(STEPS, timing_model="simple", heartbeat=0)
         t_simple = time.perf_counter() - t
-        return det, simple, t_det, t_simple, walls
+        simple_walls = {k: getattr(chip, v) - before[k]
+                        for k, v in wall_names.items()}
+        return det, simple, t_det, t_simple, walls, simple_walls
 
     reset_counts()
-    det, simple, t_det, t_simple, walls = e2e(cuda)
+    det, simple, t_det, t_simple, walls, simple_walls = e2e(cuda)
     torch.cuda.synchronize()
     chunk_counts = read_counts()
     ref_det, ref_simple, *_ = e2e("cpu")
@@ -759,8 +792,9 @@ def run(tmp: Path) -> int:
           f"{det['spikes']} fired={det['neurons_fired']} packets="
           f"{det['packets_sent']} sim_time={det['sim_time']} "
           f"({STEPS / t_det} steps/s, {t_det} s, host walls s {walls}); "
-          f"simple {STEPS} steps sim_time="
-          f"{simple['sim_time']} ({STEPS / t_simple} steps/s); engine "
+          f"simple {STEPS} steps (after a warm run) sim_time="
+          f"{simple['sim_time']} ({STEPS / t_simple} steps/s, {t_simple} s, "
+          f"host walls s {simple_walls}); engine "
           f"{det['device_engine']}, launches {chunk_counts}; "
           f"equal to the device='cpu' run | {card}")
 
@@ -782,8 +816,16 @@ def run(tmp: Path) -> int:
           f"{chunk_ms} ms ({STEPS / chunk_ms * 1e3} steps/s), chunk_plain "
           f"on CUDA tensors {chunk_plain_ms} ms "
           f"({STEPS / chunk_plain_ms * 1e3} steps/s); bound {chunk_bound} ms "
-          f"({chunk_bound_by}; {active_rows} active matrix rows) | {card}")
+          f"({chunk_bound_by}; {active_rows} active matrix rows); cluster "
+          f"of {chunk.default_cluster(case.plan)} CTAs | {card}")
     del case, rows_out, packed
+    small = ChunkCase(compile_chip(*st.load_example()), cuda, {}, STEPS)
+    small_ms = cuda_ms(lambda: small.run(chunk.chunk_kernel), 10)
+    print(f"chunk_timing: example (npad={small.plan.npad} "
+          f"M={small.plan.m_cols}) chunk of {STEPS} steps: chunk_kernel "
+          f"{small_ms} ms ({STEPS / small_ms * 1e3} steps/s); cluster of "
+          f"{chunk.default_cluster(small.plan)} CTAs | {card}")
+    del small
 
     # --- 5. delivery kernel vs plain, on the same card tensors ---
     start = time.perf_counter()
@@ -797,30 +839,38 @@ def run(tmp: Path) -> int:
         blk = build_block_delivery(compiled, dtype, cuda)
         torch.cuda.synchronize()
         blk_s = time.perf_counter() - start
+        plane = delivery.pack_arrival_plane(blk.counts)
         for pattern in PATTERNS:
-            args = delivery_args(
-                blk, fired_tiles(blk, compiled.n_neurons, pattern, dtype,
-                                 cuda))
-            cur, cnt = delivery.delivery_kernel(*args)
-            ref_cur, ref_cnt = delivery.delivery_plain(*args)
+            x = fired_tiles(blk, compiled.n_neurons, pattern, dtype, cuda)
+            cur, arrived = delivery.delivery_kernel(
+                *delivery_args(blk, x, plane))
+            ref_cur, ref_cnt = delivery.delivery_plain(
+                *delivery_args(blk, x))
             torch.cuda.synchronize()
-            check(cur.dtype == dtype and cnt.dtype == torch.int32,
+            check(cur.dtype == dtype and arrived.dtype == torch.bool,
                   f"{name} {pattern}: result dtypes")
             check(torch.equal(cur, ref_cur),
                   f"{name} {pattern}: currents differ from delivery_plain")
-            check(torch.equal(cnt, ref_cnt),
-                  f"{name} {pattern}: counts differ from delivery_plain")
+            check(torch.equal(arrived, ref_cnt > 0),
+                  f"{name} {pattern}: arrivals differ from delivery_plain's "
+                  f"counts > 0")
             err = float((cur - ref_cur).abs().max())
             delivery_err = max(delivery_err, err)
+            whole = int((x.sum(dim=1) == blk.tile).sum())
+            silent = int((x.sum(dim=1) == 0).sum())
             print(f"delivery_kernel_vs_plain: {name} n={compiled.n_neurons} "
                   f"{str(dtype)[6:]} blocks={blk.weights.shape[0]} "
                   f"tile={blk.tile} pattern={pattern} fired="
-                  f"{int(args[0].sum())} reached={int((cnt > 0).sum())} "
-                  f"max_abs_err={err} (currents and counts equal) OK")
+                  f"{int(x.sum())} (source tiles fired whole {whole}, "
+                  f"silent {silent}) reached={int(arrived.sum())} "
+                  f"max_abs_err={err} (currents equal, arrivals equal to "
+                  f"counts > 0) OK")
         print(f"delivery_setup: {name} block build {blk_s} s, weights "
               f"{blk.weights.numel() * blk.weights.element_size()} B, counts "
-              f"{blk.counts.numel()} B; compile of both chips {compile_s} s")
-        del blk, args, cur, cnt, ref_cur, ref_cnt
+              f"{blk.counts.numel()} B (delivery_plain only), packed "
+              f"arrival plane {plane.numel() * 4} B; compile of both chips "
+              f"{compile_s} s")
+        del blk, plane, x, cur, arrived, ref_cur, ref_cnt
     torch.cuda.empty_cache()
 
     # --- 6. the step scan at full width through the user API ---
@@ -906,7 +956,8 @@ def run(tmp: Path) -> int:
         _, out = run_scan(prog, prog.init_state(), 1, SCAN_COMPARE_STEPS)
         outs[use_kernel] = {k: v.cpu().numpy() for k, v in out.items()}
         if use_kernel:
-            blk = prog.block
+            check(prog.block.counts is None and prog.block.arrivals
+                  is not None, "the kernel program kept the int8 counts")
         del prog, out
         torch.cuda.empty_cache()
     check(np.array_equal(outs[True]["masks_packed"],
@@ -1003,21 +1054,31 @@ def run(tmp: Path) -> int:
           f"{REL_TOL} of the float64 run OK")
 
     # --- 8. delivery timing on the full-width chip's own fired pattern ---
+    blk = build_block_delivery(full_compiled, torch.float32, cuda)
+    plane = delivery.pack_arrival_plane(blk.counts)
     masks = outs[True]["masks_packed"]
     fired = np.zeros(blk.n_pad, dtype=bool)
     fired[:n_full] = np.unpackbits(masks[-1, 0])[:n_full].astype(bool)
     x = torch.from_numpy(fired).to(device=cuda, dtype=torch.float32).view(
         blk.n_tiles, blk.tile)
-    args = delivery_args(blk, x)
+    args = delivery_args(blk, x, plane)
+    plain_args = delivery_args(blk, x)
     delivery_ms = cuda_ms(lambda: delivery.delivery_kernel(*args), 50)
-    delivery_plain_ms = cuda_ms(lambda: delivery.delivery_plain(*args), 5)
+    delivery_plain_ms = cuda_ms(lambda: delivery.delivery_plain(*plain_args),
+                                5)
     active = int(x.any(dim=1).sum())
-    # bytes the kernel must read: the fired rows of every active block,
-    # weights and counts; one add each
-    rows = x.sum(dim=1)[blk.src_tiles.long()]
-    read_b = int(rows.sum()) * blk.tile * (4 + 1)
-    delivery_bound, delivery_bound_by = bound(
-        read_b + x.numel() * 4 + blk.n_pad * 8, int(rows.sum()) * blk.tile * 2)
+    # bytes the kernel must read: the fired rows of every active block, a
+    # float32 and one arrival bit a cell; one add a cell. The earlier
+    # kernel read a count byte a cell instead of the bit.
+    rows = int(x.sum(dim=1)[blk.src_tiles.long()].sum())
+    words = plane.shape[2]
+    read_b = rows * (blk.tile * 4 + words * 4)
+    fixed_b = (x.numel() * 4 + blk.n_pad * 5 + blk.src_tiles.numel() * 4
+               + blk.dest_offsets.numel() * 4)
+    delivery_bound, delivery_bound_by = bound(read_b + fixed_b,
+                                              rows * blk.tile)
+    earlier_bound, _ = bound(rows * blk.tile * 5 + x.numel() * 4
+                             + blk.n_pad * 8, rows * blk.tile * 2)
     # the library call: the fired row against the dense [N, N] weights
     dense = torch.zeros((blk.n_pad, blk.n_pad), dtype=torch.float32,
                         device=cuda)
@@ -1027,7 +1088,11 @@ def run(tmp: Path) -> int:
         accumulate=True)
     row = x.reshape(1, -1)
     library_ms = cuda_ms(lambda: torch.mm(row, dense), 20)
-    cur, _ = delivery.delivery_kernel(*args)
+    cur, arrived = delivery.delivery_kernel(*args)
+    ref_cur, ref_cnt = delivery.delivery_plain(*plain_args)
+    check(torch.equal(cur, ref_cur) and torch.equal(arrived, ref_cnt > 0),
+          "delivery: the kernel differs from delivery_plain on the scan's "
+          "own fired pattern")
     library_err = float((torch.mm(row, dense).reshape(cur.shape) - cur)
                         .abs().max())
     check(library_err == 0.0, "delivery: torch.mm currents differ from the "
@@ -1036,11 +1101,15 @@ def run(tmp: Path) -> int:
           f"{int(fired.sum())}/{n_full}, {active}/{blk.n_tiles} source tiles "
           f"active, {blk.weights.shape[0]} blocks: delivery_kernel "
           f"{delivery_ms} ms ({read_b / delivery_ms * 1e-6} GB/s of fired "
-          f"rows), delivery_plain on CUDA tensors {delivery_plain_ms} ms, "
-          f"torch.mm against the dense {blk.n_pad}x{blk.n_pad} float32 "
-          f"weights {library_ms} ms (currents equal); bound "
-          f"{delivery_bound} ms ({delivery_bound_by}) | {card}")
-    del dense, row, cur, args, x, blk, outs
+          f"rows, {read_b} B), delivery_plain on CUDA tensors "
+          f"{delivery_plain_ms} ms, torch.mm against the dense "
+          f"{blk.n_pad}x{blk.n_pad} float32 weights {library_ms} ms "
+          f"(currents equal); bound {delivery_bound} ms "
+          f"({delivery_bound_by}; {delivery_bound / delivery_ms} of it "
+          f"reached); the earlier kernel's bytes (a count byte a cell, "
+          f"{rows * blk.tile * 5} B) bound {earlier_bound} ms | {card}")
+    del dense, row, cur, arrived, ref_cur, ref_cnt, args, plain_args, x
+    del blk, plane, outs
     torch.cuda.empty_cache()
 
     merge = merge_phases(st, compile_chip, full_compiled, mid_compiled, cuda,

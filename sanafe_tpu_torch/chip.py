@@ -1100,7 +1100,7 @@ class SpikingChip:
     def _write_spike_rows_native(self, outputs: dict, t0: int,
                                  sink) -> bool:
         """Stream a chunk's spikes.csv rows via the native formatter
-        (sanafe_tpu/native_src/scheduler.cpp format_spike_rows):
+        (csrc/scheduler.cpp format_spike_rows):
         byte-identical to the Python f-string path. Returns False when the
         native library is unavailable so the caller falls back."""
         from . import native as native_mod

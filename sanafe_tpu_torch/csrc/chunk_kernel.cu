@@ -16,22 +16,47 @@
 //      timing model's sim_time = max(per-core sums) + sync delay, and the
 //      per-step outputs (mask bytes, spike-log bytes, potential/u log).
 //
-// Design: ONE persistent thread block of 1024 threads runs the whole chunk.
-// Thread i owns neuron lane i and keeps its potential, input current and
-// refractory count in registers across all steps; the parameter planes, the
-// result row r and the [v | u] log row live in shared memory. The lhs is 0/1,
-// so the matvec is a sum of the matrix rows whose lhs entry is 1: the active
-// row indices are compacted in shared memory (warp ballots + a scan), then
-// thread c sums column c over them in ascending row order with fp32 adds.
-// No product rounds and the order is fixed, so results are deterministic from
-// run to run.
+// Design: ONE thread-block cluster of C CTAs (1024 threads each, C up to 16)
+// runs the whole chunk, and the step-to-step hand-off never leaves the chip.
 //
-// Bound: the matrix (at most 5 MiB) stays in the 50 MB L2 across steps, and
-// each step reads its active rows (up to 2*Npad rows of M floats, ~3.5 MB for
-// the 384-neuron chip) from L2 into ONE SM, behind a chain of steps that must
-// run in order. So the kernel is bound by one SM's L2 read bandwidth plus the
-// per-step synchronisation; spreading a step over several SMs (clusters or a
-// grid sync), TMA and ballot-based bit packing are later work.
+// What bounds a step is the matvec: the lhs is 0/1, so r is the sum of the
+// matrix rows whose lhs entry is 1 (up to 2*Npad rows of M floats, 4.7 MB for
+// the 384-neuron chip, resident in the 50 MB L2), summed per column in
+// ascending row order by ONE accumulator so that the result is bit-identical
+// to a serial sum (no product rounds, the order is fixed). The design
+// spreads that over the cluster and takes the loads out of the serial chain:
+//
+// - CTA q owns a slice of the matrix's columns (16-byte chunks of 4 columns,
+//   ceil(M/4 / C) chunks a CTA) and reads only that slice from L2.
+// - The slice's active rows are copied in panels of P rows into a ring of
+//   three shared-memory buffers with cp.async by all 1024 threads, two
+//   panels ahead of the adds, one __syncthreads a panel. One thread per
+//   column then adds the panel's rows from shared memory in row order: the
+//   dependent chain is an fp32 add per row, not an L2 round trip per row.
+// - The soma update and the compaction of the active rows (at most 512
+//   lanes; warp ballots + a scan) are cheap, so every CTA repeats them
+//   identically in its own shared memory and registers: thread i owns
+//   neuron lane i and keeps its potential, input current and refractory
+//   count in registers across all steps.
+// - The only exchange a step: each CTA writes its slice of r into every
+//   CTA's shared memory (distributed shared memory, map_shared_rank), into
+//   one of two r buffers by step parity, then ONE hardware cluster barrier.
+//   A CTA can run at most one barrier ahead of its slowest peer, so the
+//   buffer written in step j+2 is no longer read by anyone from step j.
+// - Rank 0 keeps the counters, the Kahan sums and the per-step outputs.
+//
+// The cluster size comes from the caller (ops/chunk.py picks it from the
+// chip's size: a tiny chip's step is bound by its barriers and round trips,
+// gains nothing from 16 CTAs and would pay the cluster barrier, so it runs on
+// a cluster of one, which synchronises with __syncthreads); ragged slices,
+// empty slices and C = 1 are all the same code.
+//
+// What is left: a cluster lies within one GPC, and the 16 CTAs together read
+// the matrix from L2 at about 0.67 TB/s (4.7 MB in 7 us of the 384-neuron
+// chip's 10 us step, measured on an H100), so the step is now bound by that
+// path and not by the adds. The matrix does not fit the cluster's shared
+// memory in float32 (4.7 MB against 16 x 227 KB); a grid over all GPCs with
+// the matrix resident in shared memory is the design that would lift it.
 //
 // Numerics match the JAX kernel: build with -fmad=false so u*decay + cur is
 // not contracted into an FMA, never with --use_fast_math (it would break the
@@ -40,9 +65,12 @@
 // trunc(v*64)/64 quantisation; refractory = max(0, refr - 1). Padded lanes
 // have all model flags zero and never fire or update.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -83,22 +111,55 @@ struct Args {
   float sync_delay;
   long long t0;
   int n_steps;
+  // matvec tiling: 16-byte column chunks per CTA, threads per panel row
+  // (a power of two >= chunks_per_cta), rows per panel
+  int chunks_per_cta, row_threads, panel_rows;
 };
+
+constexpr int kPanels = 3;       // ring of panel buffers
+constexpr int kColsPerThread = 2;  // a CTA's slice is at most 2048 columns
+
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
 
 __device__ __forceinline__ uint8_t to_byte(float x) {
   return static_cast<uint8_t>(__float2int_rn(x));
 }
 
 __global__ void __launch_bounds__(kThreads, 1) chunk_kernel(const Args a) {
-  extern __shared__ float smem[];
+  extern __shared__ float4 smem4[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int n_ranks = static_cast<int>(cluster.num_blocks());
   const int npad = a.npad;
   const int m = a.m_cols;
-  float* s_par = smem;                                      // [P_USED*npad]
-  float* s_res = s_par + P_USED * npad;                     // [m]
-  float* s_vu = s_res + m;                                  // [2*npad]
+  // this CTA's column slice [c0, c0 + w)
+  const int m4 = m / 4;
+  const int chunk0 = min(rank * a.chunks_per_cta, m4);
+  const int w4 = min(a.chunks_per_cta, m4 - chunk0);
+  const int c0 = 4 * chunk0;
+  const int w = 4 * w4;
+  const int panel_elems = a.panel_rows * 4 * a.chunks_per_cta;
+  float* s_panel = reinterpret_cast<float*>(smem4);  // [kPanels][panel_elems]
+  float* s_par = s_panel + kPanels * panel_elems;           // [P_USED*npad]
+  float* s_res2 = s_par + P_USED * npad;                    // [2][m]
+  float* s_vu = s_res2 + 2 * m;                             // [2*npad]
   int* s_flag = reinterpret_cast<int*>(s_vu + 2 * npad);    // [2*npad]
   int* s_rows = s_flag + 2 * npad;                          // [2*npad]
-  int* s_warp = s_rows + 2 * npad;                          // [kWarps + 1]
+  int* s_warp = s_rows + 2 * npad;                          // [kWarps]
+  int* s_logidx = s_warp + kWarps;                          // [n_log]
+  const bool lead = rank == 0;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -106,6 +167,24 @@ __global__ void __launch_bounds__(kThreads, 1) chunk_kernel(const Args a) {
   const bool own = tid < npad;
 
   for (int k = tid; k < P_USED * npad; k += kThreads) s_par[k] = a.params[k];
+  if (lead && a.logs) {
+    for (int k = tid; k < a.n_log; k += kThreads) s_logidx[k] = a.log_index[k];
+  }
+  // the constant row's entries of this thread's columns
+  float cst[kColsPerThread];
+#pragma unroll
+  for (int i = 0; i < kColsPerThread; ++i) {
+    const int c = tid + i * kThreads;
+    cst[i] = c < w ? a.cst[c0 + c] : 0.f;
+  }
+  // a single CTA needs no cluster barrier (it costs more than a CTA's own)
+  auto step_barrier = [&]() {
+    if (n_ranks > 1) {
+      cluster.sync();
+    } else {
+      __syncthreads();
+    }
+  };
 
   // neuron lane state, carried in registers across the chunk
   float v = 0.f, u = 0.f, refr = 0.f, cur = 0.f;
@@ -120,10 +199,28 @@ __global__ void __launch_bounds__(kThreads, 1) chunk_kernel(const Args a) {
   // warp 0: lanes 0..4 hold the counter sums, lanes 5..9 the Kahan sums
   int acc_i = 0;
   float acc_f = 0.f, comp_f = 0.f;
-  __syncthreads();
+  // the panel copy: thread (ty, tx) copies chunk tx of rows ty, ty + pass, ...
+  const int tx = tid & (a.row_threads - 1);
+  const int ty = tid / a.row_threads;
+  const int pass = kThreads / a.row_threads;
+  // this lane's input-plane entries, read one step ahead of their use so
+  // that no global load sits on a step's critical path
+  const bool read_add = own && a.add_plane;
+  const bool read_spike = own && a.has_input && a.spike_plane;
+  float next_add = read_add && a.n_steps > 0 ? a.add_plane[tid] : 0.f;
+  float next_spike = read_spike && a.n_steps > 0 ? a.spike_plane[tid] : 0.f;
+  // every CTA's shared memory exists before anyone writes into it
+  cluster.sync();
 
   for (int j = 0; j < a.n_steps; ++j) {
     const long long t = a.t0 + j;
+    float* s_res = s_res2 + (j & 1) * m;
+    const float add = next_add;
+    const float spike = next_spike;
+    if (j + 1 < a.n_steps) {
+      if (read_add) next_add = a.add_plane[(size_t)(j + 1) * npad + tid];
+      if (read_spike) next_spike = a.spike_plane[(size_t)(j + 1) * npad + tid];
+    }
 
     // --- 1. soma update (one neuron lane per thread) ---
     if (own) {
@@ -132,7 +229,6 @@ __global__ void __launch_bounds__(kThreads, 1) chunk_kernel(const Args a) {
       const bool bias_nz = fabsf(PAR(P_BIAS)) > 0.f;
       const bool force = PAR(P_FORCE) > 0.f;
       const float in_cur = valid ? cur : 0.f;
-      const float add = a.add_plane ? a.add_plane[(size_t)j * npad + tid] : 0.f;
       bool fired = false, updated = false;
       float v2 = v, u2 = u, refr2 = refr;
 
@@ -192,7 +288,7 @@ __global__ void __launch_bounds__(kThreads, 1) chunk_kernel(const Args a) {
       }
 
       if (a.has_input && a.spike_plane && PAR(P_IS_INPUT) > 0.f &&
-          a.spike_plane[(size_t)j * npad + tid] > 0.f) {
+          spike > 0.f) {
         fired = true;
       }
 #undef PAR
@@ -211,46 +307,96 @@ __global__ void __launch_bounds__(kThreads, 1) chunk_kernel(const Args a) {
     const unsigned ballot = __ballot_sync(kFull, flag);
     if (lane == 0) s_warp[warp] = __popc(ballot);
     __syncthreads();
-    if (warp == 0) {
-      const int count = s_warp[lane];
-      int incl = count;
-      for (int o = 1; o < 32; o <<= 1) {
-        const int x = __shfl_up_sync(kFull, incl, o);
-        if (lane >= o) incl += x;
+    // every warp scans the 32 warp counts itself: no third barrier
+    const int count = s_warp[lane];
+    int incl = count;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int x = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += x;
+    }
+    const int n_rows = __shfl_sync(kFull, incl, 31);
+    const int warp_base = __shfl_sync(kFull, incl - count, warp);
+    if (flag) s_rows[warp_base + __popc(ballot & ((1u << lane) - 1u))] = tid;
+    if (lead && a.logs) {
+      // s_vu is stable until the next step's soma update, past the barrier
+      for (int k = tid; k < a.n_log; k += kThreads) {
+        // + 0.f as in the JAX selection matvec: a -0.0 potential logs as 0
+        a.logs[(size_t)j * a.n_log + k] = s_vu[s_logidx[k]] + 0.f;
       }
-      s_warp[lane] = incl - count;
-      if (lane == 31) s_warp[kWarps] = incl;
     }
     __syncthreads();
-    if (flag) s_rows[s_warp[warp] + __popc(ballot & ((1u << lane) - 1u))] = tid;
-    __syncthreads();
-    const int n_rows = s_warp[kWarps];
 
-    // --- 2b. r = lhs @ matrix + const: column sums over the active rows ---
-    for (int c = tid; c < m; c += kThreads) {
-      const float* col = a.matrix + c;
-      float acc = 0.f;
-      int k = 0;
-      for (; k + 4 <= n_rows; k += 4) {
-        const float x0 = __ldg(col + (size_t)s_rows[k] * m);
-        const float x1 = __ldg(col + (size_t)s_rows[k + 1] * m);
-        const float x2 = __ldg(col + (size_t)s_rows[k + 2] * m);
-        const float x3 = __ldg(col + (size_t)s_rows[k + 3] * m);
-        acc = acc + x0;
-        acc = acc + x1;
-        acc = acc + x2;
-        acc = acc + x3;
+    // --- 2b. r = lhs @ matrix + const on this CTA's columns: panels of the
+    // active rows through shared memory, then column sums in row order ---
+    const int n_panels = (n_rows + a.panel_rows - 1) / a.panel_rows;
+    auto copy_panel = [&](int q) {
+      if (q < n_panels && tx < w4) {
+        float* buf = s_panel + (q % kPanels) * panel_elems;
+        const int k0 = q * a.panel_rows;
+        const int k1 = min(n_rows, k0 + a.panel_rows);
+        for (int k = k0 + ty; k < k1; k += pass) {
+          cp_async_16(buf + (size_t)(k - k0) * w + 4 * tx,
+                      a.matrix + (size_t)s_rows[k] * m + c0 + 4 * tx);
+        }
       }
-      for (; k < n_rows; ++k) acc = acc + __ldg(col + (size_t)s_rows[k] * m);
-      s_res[c] = acc + __ldg(a.cst + c);
+      cp_async_commit();  // one group a panel, empty or not
+    };
+    float acc[kColsPerThread];
+#pragma unroll
+    for (int i = 0; i < kColsPerThread; ++i) acc[i] = 0.f;
+    copy_panel(0);
+    copy_panel(1);
+    for (int q = 0; q < n_panels; ++q) {
+      cp_async_wait<1>();  // this thread's copies of panel q landed
+      __syncthreads();     // everyone's did; panel q - 1 is fully summed
+      copy_panel(q + 2);   // into the buffer panel q - 1 used
+      const float* buf = s_panel + (q % kPanels) * panel_elems;
+      const int rows_q = min(a.panel_rows, n_rows - q * a.panel_rows);
+#pragma unroll
+      for (int i = 0; i < kColsPerThread; ++i) {
+        const int c = tid + i * kThreads;
+        if (c < w) {
+          const float* col = buf + c;
+          float sum = acc[i];
+          int k = 0;
+          for (; k + 8 <= rows_q; k += 8) {
+            float x[8];
+#pragma unroll
+            for (int u = 0; u < 8; ++u) x[u] = col[(size_t)(k + u) * w];
+#pragma unroll
+            for (int u = 0; u < 8; ++u) sum = sum + x[u];
+          }
+          for (; k < rows_q; ++k) sum = sum + col[(size_t)k * w];
+          acc[i] = sum;
+        }
+      }
     }
-    __syncthreads();
+    cp_async_wait<0>();
+    // every CTA gets this slice of r, in the buffer of this step's parity
+#pragma unroll
+    for (int i = 0; i < kColsPerThread; ++i) {
+      const int c = tid + i * kThreads;
+      if (c < w) {
+        const float value = acc[i] + cst[i];
+        if (n_ranks == 1) {
+          s_res[c0 + c] = value;
+        } else {
+          for (int peer = 0; peer < n_ranks; ++peer) {
+            cluster.map_shared_rank(s_res, peer)[c0 + c] = value;
+          }
+        }
+      }
+    }
+    // the one exchange of the step; also orders this CTA's own reads of
+    // s_flag, s_rows, s_vu and the panels before the next step's writes
+    step_barrier();
 
     // --- 3. consume r ---
     if (own) {
       cur = s_res[a.g_deliver + tid];
       valid = s_res[a.g_count + tid] > 0.f;
     }
+    if (!lead) continue;
     if (warp == 0) {
       float mx = __int_as_float(0xff800000);  // -inf
       for (int c = lane; c < a.n_cores; c += 32) {
@@ -280,15 +426,9 @@ __global__ void __launch_bounds__(kThreads, 1) chunk_kernel(const Args a) {
         a.spike_log[(size_t)j * a.sbytes + b] = to_byte(s_res[a.g_spike + b]);
       }
     }
-    if (a.logs) {
-      for (int k = tid; k < a.n_log; k += kThreads) {
-        // + 0.f as in the JAX selection matvec: a -0.0 potential logs as 0
-        a.logs[(size_t)j * a.n_log + k] = s_vu[a.log_index[k]] + 0.f;
-      }
-    }
-    __syncthreads();  // s_vu, s_flag and s_res are rewritten next step
   }
 
+  if (!lead) return;
   if (own) {
     float* so = a.state_out;
     so[S_V * npad + tid] = v;
@@ -311,7 +451,9 @@ __global__ void __launch_bounds__(kThreads, 1) chunk_kernel(const Args a) {
 
 extern "C" {
 
-// Launch one chunk on `stream`; returns cudaGetLastError() (0 on success).
+// Launch one chunk on `stream` as one cluster of `cluster` CTAs (1..16; above
+// 8 is the non-portable cluster size Hopper allows); returns the CUDA error
+// (0 on success).
 int sanafe_chunk_launch(
     const void* matrix, const void* cst, const void* params,
     const void* state_in, void* state_out, const void* spike_plane,
@@ -320,8 +462,12 @@ int sanafe_chunk_launch(
     int npad, int n_cores, int m_cols, int nbytes, int sbytes, int n_log,
     int g_lat, int g_msg, int g_deliver, int g_count, int g_pack_fired,
     int g_pack_upd, int g_spike, int has_lif, int has_tn, int has_input,
-    float sync_delay, long long t0, int n_steps, int device, void* stream) {
-  if (2 * npad > kThreads || n_steps < 0) return cudaErrorInvalidValue;
+    float sync_delay, long long t0, int n_steps, int cluster, int device,
+    void* stream) {
+  if (2 * npad > kThreads || n_steps < 0 || m_cols % 4 != 0 || cluster < 1 ||
+      cluster > 16) {
+    return cudaErrorInvalidValue;
+  }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   Args a;
@@ -357,14 +503,46 @@ int sanafe_chunk_launch(
   a.sync_delay = sync_delay;
   a.t0 = t0;
   a.n_steps = n_steps;
+  // matvec tiling: each CTA's slice of 16-byte column chunks, a power-of-two
+  // row of copy threads over it, and panels of up to 48 KB
+  const int m4 = m_cols / 4;
+  a.chunks_per_cta = (m4 + cluster - 1) / cluster;
+  if (4 * a.chunks_per_cta > kColsPerThread * kThreads) {
+    return cudaErrorInvalidValue;
+  }
+  a.row_threads = 1;
+  while (a.row_threads < a.chunks_per_cta) a.row_threads *= 2;
+  const int pass = kThreads / a.row_threads;
+  const int budget_rows = (48 << 10) / (16 * a.chunks_per_cta);
+  a.panel_rows = pass * (budget_rows / pass > 0 ? budget_rows / pass : 1);
   const size_t smem =
-      sizeof(float) * ((size_t)P_USED * npad + m_cols + 2 * (size_t)npad) +
-      sizeof(int) * (4 * (size_t)npad + kWarps + 1);
+      sizeof(float) * ((size_t)kPanels * a.panel_rows * 4 * a.chunks_per_cta +
+                       (size_t)P_USED * npad + 2 * (size_t)m_cols +
+                       2 * (size_t)npad) +
+      sizeof(int) * (4 * (size_t)npad + kWarps + (size_t)n_log);
   err = cudaFuncSetAttribute(chunk_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  chunk_kernel<<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  if (cluster > 8) {
+    err = cudaFuncSetAttribute(
+        chunk_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(cluster);
+  config.blockDim = dim3(kThreads);
+  config.dynamicSmemBytes = smem;
+  config.stream = static_cast<cudaStream_t>(stream);
+  config.attrs = &attr;
+  config.numAttrs = 1;
+  err = cudaLaunchKernelEx(&config, chunk_kernel, a);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 

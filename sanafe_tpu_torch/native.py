@@ -2,10 +2,11 @@
 
 The hot host-side component — the per-timestep NoC event sweep
 (reference ``src/schedule.cpp:208-611``) — is implemented in C++
-(``sanafe_tpu/native_src/scheduler.cpp``, shared with the JAX package) and
-parallelized across the timesteps of a device chunk with OpenMP. This module compiles the shared library on demand (g++,
-cached by mtime) and exposes a :class:`NativeScheduler` bound to one compiled
-chip. Falls back cleanly: importers should catch ``NativeUnavailable``.
+(``csrc/scheduler.cpp`` with ``csrc/cycle_noc.h``, this package's own copy
+of sanafe_tpu's scheduler source) and parallelized across the timesteps of a
+device chunk with OpenMP. This module compiles the shared library on demand
+(g++, cached by mtime) and exposes a :class:`NativeScheduler` bound to one
+compiled chip. Falls back cleanly: importers should catch ``NativeUnavailable``.
 """
 
 from __future__ import annotations
@@ -18,11 +19,11 @@ from typing import Optional, Union
 
 import numpy as np
 
-# The scheduler source is shared with sanafe_tpu and compiled by path (it is
-# plain C++, so reading it imports nothing of the JAX package); the library
-# is built into this package's own build directory.
+# The package's own copy of the scheduler source (tests/test_torch_slice.py
+# holds it to sanafe_tpu's: one added #include <cstdio>, nothing else); the
+# library is built into this package's own build directory.
 _PKG_DIR = Path(__file__).resolve().parent
-_SRC_DIR = _PKG_DIR.parent / "sanafe_tpu" / "native_src"
+_SRC_DIR = _PKG_DIR / "csrc"
 _SRC = _SRC_DIR / "scheduler.cpp"
 _BUILD_DIR = _PKG_DIR / "build"
 _LIB = _BUILD_DIR / "libsanafe_sched.so"
@@ -46,9 +47,6 @@ def _compile_library() -> None:
         # scheduler's a*b+c sequences into FMAs, changing float64 rounding
         # vs the reference binary (built without FMA) — the detailed
         # sim_time must match it bit-for-bit.
-        # -include cstdio: the shared source calls fprintf without including
-        # <cstdio>, which only older libstdc++ headers pull in transitively
-        "-include", "cstdio",
         "-shared", "-fPIC", "-fopenmp", str(_SRC), "-o", str(tmp),
     ]
     try:
@@ -304,7 +302,7 @@ class NativeScheduler:
         n_threads: int = 0,
     ) -> np.ndarray:
         """Cycle-accurate sim_time for T timesteps via the flit-level cmesh
-        NoC model (sanafe_tpu/native_src/cycle_noc.h)."""
+        NoC model (csrc/cycle_noc.h)."""
         masks_packed = np.ascontiguousarray(masks_packed, dtype=np.uint8)
         T, planes, mask_bytes = masks_packed.shape
         assert planes == 2

@@ -639,7 +639,8 @@ def _library() -> ctypes.CDLL:
     lib.sanafe_chunk_launch.argtypes = (
         [vp] * 13          # operands and outputs
         + [i32] * 16       # shapes, column groups, model flags
-        + [ctypes.c_float, ctypes.c_longlong, i32, i32, vp]
+        # sync delay, t0, steps, cluster size, device, stream
+        + [ctypes.c_float, ctypes.c_longlong, i32, i32, i32, vp]
     )
     lib.sanafe_chunk_error_string.restype = ctypes.c_char_p
     lib.sanafe_chunk_error_string.argtypes = [i32]
@@ -650,10 +651,28 @@ def _ptr(x: Optional[torch.Tensor]) -> Optional[int]:
     return None if x is None else x.data_ptr()
 
 
+# The kernel runs a chunk on one thread-block cluster and cuts the matrix's
+# columns over its CTAs. 16 is the largest cluster an H100 schedules. A chip
+# whose busiest step (every neuron fired and updated) adds less than
+# TINY_STEP_BYTES of matrix rows is bound by the step's barriers, not by the
+# matvec: it runs on a cluster of one, which needs no cluster barrier.
+MAX_CLUSTER = 16
+TINY_STEP_BYTES = 64 << 10
+
+
+def default_cluster(plan: ChunkPlan) -> int:
+    """CTAs in the kernel's cluster, from the chip's size."""
+    busiest_step_bytes = 2 * plan.n * plan.m_cols * 4
+    return MAX_CLUSTER if busiest_step_bytes > TINY_STEP_BYTES else 1
+
+
 def chunk_kernel(plan: ChunkPlan, mats: dict, state: torch.Tensor, t0: int,
-                 n_steps: int, spike_plane=None, add_plane=None):
+                 n_steps: int, spike_plane=None, add_plane=None,
+                 cluster: Optional[int] = None):
     """Run one chunk: the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors. Same arguments and results as ``chunk_plain``.
+    for CPU tensors. Same arguments and results as ``chunk_plain``;
+    ``cluster`` overrides ``default_cluster`` (1..16 CTAs; the result does
+    not depend on it).
 
     The kernel runs float32 only; it launches on the current stream and
     does not synchronise. ``chunk_kernel.launches`` counts its launches."""
@@ -671,6 +690,11 @@ def chunk_kernel(plan: ChunkPlan, mats: dict, state: torch.Tensor, t0: int,
         raise ValueError(f"chunk_kernel: Npad {plan.npad} exceeds 512")
     if not plan.fits(n_steps):
         raise ValueError(f"chunk of {n_steps} steps could wrap int32 sums")
+    if cluster is None:
+        cluster = default_cluster(plan)
+    if not 1 <= cluster <= MAX_CLUSTER:
+        raise ValueError(f"chunk_kernel: cluster {cluster} outside 1.."
+                         f"{MAX_CLUSTER}")
     n_log = plan.n_plog + plan.n_ulog
     expect = {
         "matrix": (mats["matrix"], (2 * plan.npad, plan.m_cols),
@@ -686,11 +710,12 @@ def chunk_kernel(plan: ChunkPlan, mats: dict, state: torch.Tensor, t0: int,
         if x is None:
             continue
         if (x.device != state.device or tuple(x.shape) != shape
-                or x.dtype != dtype or not x.is_contiguous()):
+                or x.dtype != dtype or not x.is_contiguous()
+                or x.data_ptr() % 16):
             raise ValueError(
-                f"chunk_kernel: {name} must be a contiguous {dtype} tensor "
-                f"of shape {shape} on {state.device}; got {x.dtype} "
-                f"{tuple(x.shape)} on {x.device}"
+                f"chunk_kernel: {name} must be a contiguous, 16-byte aligned "
+                f"{dtype} tensor of shape {shape} on {state.device}; got "
+                f"{x.dtype} {tuple(x.shape)} on {x.device}"
             )
     if plan.need_spike_plane and spike_plane is None:
         raise ValueError("chunk_kernel: this plan needs the spike plane")
@@ -720,7 +745,7 @@ def chunk_kernel(plan: ChunkPlan, mats: dict, state: torch.Tensor, t0: int,
         int(SOMA_MODEL_LIF in plan.models),
         int(SOMA_MODEL_TRUENORTH in plan.models),
         int(SOMA_MODEL_INPUT in plan.models),
-        plan.sync_delay, int(t0), int(n_steps),
+        plan.sync_delay, int(t0), int(n_steps), int(cluster),
         state.device.index or 0, stream,
     )
     if err:

@@ -5,13 +5,18 @@ part of ``sanafe_tpu/ops/step.py:_block_deliver``. Per timestep, for each
 destination tile, the sum over its blocks (sorted dest-major, as
 ``build_block_delivery`` gives them) of ``x[src_tile] @ W[block]``, where
 ``x`` is the 0/1 fired vector cut into ``[n_tiles, tile]``; and in the same
-pass the sum of ``x[src_tile] @ counts[block]`` in int32, whose positivity
-is the reference's "message arrived" condition.
+pass the reference's "message arrived" condition: whether any fired row of
+any of the tile's blocks holds an edge into the column.
 
-``delivery_plain`` is the einsum + sorted segment sum and the count product
-of sanafe_tpu (``ops/step.py:1580-1608``) in PyTorch, for any device;
-``delivery_kernel`` is the wrapper of ``csrc/delivery_kernel.cu``, which
-takes the plain version only for tensors on the CPU.
+``delivery_plain`` is the einsum + sorted segment sum and the int8 count
+product of sanafe_tpu (``ops/step.py:1580-1608``) in PyTorch, for any
+device; its ``cnt > 0`` is the arrival condition. ``delivery_kernel`` is the
+wrapper of ``csrc/delivery_kernel.cu``. The kernel reads one bit where the
+step needs one bit: instead of the int8 counts it takes the packed arrival
+plane ``pack_arrival_plane(counts)`` (``counts > 0``, 32 columns a word) and
+ORs it over the fired rows. It first compacts each source tile's fired rows
+into an ascending list, once a step (``fired_rows_plain`` is that phase's
+plain version). On CPU tensors the wrapper takes the plain versions.
 """
 
 from __future__ import annotations
@@ -22,7 +27,8 @@ import torch
 
 from .cuda_build import DELIVERY, load
 
-# the kernel's CTA width: a tile is at most this many neurons
+# a tile is at most this many neurons (the kernel's fired-row lists hold row
+# indices as bytes), and a multiple of 4 (rows are read 16 bytes at a time)
 MAX_TILE = 256
 
 
@@ -71,6 +77,62 @@ def delivery_plain(fired_tiles, weights, counts, src_tiles, dest_offsets,
     )
 
 
+def pack_arrival_plane(counts: torch.Tensor) -> torch.Tensor:
+    """The packed arrival plane of ``counts`` [B, tile, tile] (int8 edge
+    counts): int32 [B, tile, ceil(tile / 32)], bit ``j % 32`` of word
+    ``j // 32`` of row ``i`` set where ``counts[b, i, j] > 0``. One bit a
+    cell instead of one byte; built once per program."""
+    n_blocks, tile, _ = counts.shape
+    words = -(-tile // 32)
+    shifts = torch.arange(32, dtype=torch.int64, device=counts.device)
+    packed = torch.empty((n_blocks, tile, words), dtype=torch.int32,
+                         device=counts.device)
+    step = 512  # blocks at a time: the int64 temporaries are 8x the counts
+    for lo in range(0, n_blocks, step):
+        part = counts[lo : lo + step]
+        bits = torch.zeros((part.shape[0], tile, words * 32),
+                           dtype=torch.int64, device=counts.device)
+        bits[:, :, :tile] = part > 0
+        word = (bits.view(-1, tile, words, 32) << shifts).sum(dim=3)
+        # bit 31 set: wrap into int32's sign bit
+        packed[lo : lo + step] = torch.where(word >= 2**31, word - 2**32,
+                                             word).to(torch.int32)
+    return packed
+
+
+def unpack_arrival_plane(arrivals: torch.Tensor, tile: int) -> torch.Tensor:
+    """Inverse of ``pack_arrival_plane``: bool [B, tile, tile]."""
+    shifts = torch.arange(32, dtype=torch.int32, device=arrivals.device)
+    bits = (arrivals.unsqueeze(3) >> shifts) & 1
+    return bits.view(arrivals.shape[0], arrivals.shape[1], -1)[:, :, :tile] > 0
+
+
+def fired_rows_plain(fired_tiles: torch.Tensor):
+    """Plain version of the kernel's compaction phase: for each source
+    tile the ascending list of its fired rows. Returns (rows [n_tiles, tile]
+    uint8, the first ``lens[s]`` entries of row ``s`` valid and the rest 0,
+    and lens [n_tiles] int32)."""
+    fired = fired_tiles != 0
+    tile = fired.shape[1]
+    # a stable sort of "not fired" puts the fired rows first, in order
+    order = torch.sort((~fired).to(torch.uint8), dim=1, stable=True).indices
+    lens = fired.sum(dim=1).to(torch.int32)
+    keep = torch.arange(tile, device=fired.device)[None, :] < lens[:, None]
+    return torch.where(keep, order, 0).to(torch.uint8), lens
+
+
+def delivery_packed_plain(fired_tiles, weights, arrivals, src_tiles,
+                          dest_offsets, max_blocks_per_dest: int):
+    """Plain version of ``delivery_kernel`` on its own arguments:
+    ``delivery_plain`` over the unpacked arrival plane. Returns (currents,
+    arrived bool [n_tiles, tile])."""
+    counts = unpack_arrival_plane(arrivals, fired_tiles.shape[1]).to(
+        torch.int8)
+    cur, cnt = delivery_plain(fired_tiles, weights, counts, src_tiles,
+                              dest_offsets, max_blocks_per_dest)
+    return cur, cnt > 0
+
+
 @functools.cache
 def _library():
     import ctypes
@@ -78,24 +140,32 @@ def _library():
     lib = load(DELIVERY)
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.sanafe_delivery_launch.restype = i32
-    lib.sanafe_delivery_launch.argtypes = [vp] * 7 + [i32] * 4 + [vp]
+    lib.sanafe_delivery_launch.argtypes = [vp] * 9 + [i32] * 5 + [vp]
     lib.sanafe_delivery_error_string.restype = ctypes.c_char_p
     lib.sanafe_delivery_error_string.argtypes = [i32]
     return lib
 
 
-def delivery_kernel(fired_tiles, weights, counts, src_tiles, dest_offsets,
+def delivery_kernel(fired_tiles, weights, arrivals, src_tiles, dest_offsets,
                     max_blocks_per_dest: int):
-    """One delivery: the CUDA kernel for CUDA tensors, ``delivery_plain``
-    for CPU tensors. Same arguments and results as ``delivery_plain``.
+    """One delivery: the CUDA kernels (compaction, then the sums) for CUDA
+    tensors, ``delivery_packed_plain`` for CPU tensors.
+
+    ``fired_tiles`` [n_tiles, tile] 0/1 in the program dtype, ``weights``
+    [B, tile, tile] in the same dtype, ``arrivals`` [B, tile, ceil(tile/32)]
+    int32 (``pack_arrival_plane``), ``src_tiles`` [B] int32,
+    ``dest_offsets`` [n_tiles + 1] int32. Returns (currents [n_tiles, tile]
+    in the program dtype, arrived [n_tiles, tile] bool), equal to
+    ``delivery_plain``'s currents and ``cnt > 0``.
 
     The kernel runs float32 and float64, launches on the current stream and
     does not synchronise. ``delivery_kernel.launches`` counts its
     launches."""
     dev = fired_tiles.device
     if dev.type == "cpu":
-        return delivery_plain(fired_tiles, weights, counts, src_tiles,
-                              dest_offsets, max_blocks_per_dest)
+        return delivery_packed_plain(fired_tiles, weights, arrivals,
+                                     src_tiles, dest_offsets,
+                                     max_blocks_per_dest)
     if dev.type != "cuda":
         raise ValueError(f"delivery_kernel: unsupported device {dev}")
     dtype = fired_tiles.dtype
@@ -105,30 +175,38 @@ def delivery_kernel(fired_tiles, weights, counts, src_tiles, dest_offsets,
         raise ValueError("delivery_kernel: fired_tiles must be [n_tiles, tile]")
     n_tiles, tile = fired_tiles.shape
     n_blocks = weights.shape[0]
-    if not 0 < tile <= MAX_TILE:
-        raise ValueError(f"delivery_kernel: tile {tile} exceeds {MAX_TILE}")
-    expect = {
-        "fired_tiles": (fired_tiles, (n_tiles, tile), dtype),
-        "weights": (weights, (n_blocks, tile, tile), dtype),
-        "counts": (counts, (n_blocks, tile, tile), torch.int8),
-        "src_tiles": (src_tiles, (n_blocks,), torch.int32),
-        "dest_offsets": (dest_offsets, (n_tiles + 1,), torch.int32),
-    }
-    for name, (x, shape, dt) in expect.items():
-        if (x.device != dev or tuple(x.shape) != shape or x.dtype != dt
-                or not x.is_contiguous()):
+    if not 0 < tile <= MAX_TILE or tile % 4:
+        raise ValueError(f"delivery_kernel: tile {tile} is not a multiple "
+                         f"of 4 up to {MAX_TILE}")
+    expect = (
+        ("fired_tiles", fired_tiles, (n_tiles, tile), dtype),
+        ("weights", weights, (n_blocks, tile, tile), dtype),
+        ("arrivals", arrivals, (n_blocks, tile, -(-tile // 32)), torch.int32),
+        ("src_tiles", src_tiles, (n_blocks,), torch.int32),
+        ("dest_offsets", dest_offsets, (n_tiles + 1,), torch.int32),
+    )
+    pointers = []
+    for name, x, shape, dt in expect:
+        ptr = x.data_ptr()
+        if (x.device != dev or x.shape != shape or x.dtype != dt
+                or not x.is_contiguous() or ptr % 16):
             raise ValueError(
-                f"delivery_kernel: {name} must be a contiguous {dt} tensor "
-                f"of shape {shape} on {dev}; got {x.dtype} "
-                f"{tuple(x.shape)} on {x.device}"
+                f"delivery_kernel: {name} must be a contiguous, 16-byte "
+                f"aligned {dt} tensor of shape {shape} on {dev}; got "
+                f"{x.dtype} {tuple(x.shape)} on {x.device}"
             )
+        pointers.append(ptr)
     out_cur = torch.empty((n_tiles, tile), dtype=dtype, device=dev)
-    out_cnt = torch.empty((n_tiles, tile), dtype=torch.int32, device=dev)
+    # one allocation: the arrived plane, then the kernel's scratch (the
+    # fired-row lists, a byte a row, and their int32 lengths)
+    n = n_tiles * tile
+    scratch = torch.empty(2 * n + 4 * n_tiles, dtype=torch.uint8, device=dev)
+    base = scratch.data_ptr()
     lib = _library()
     err = lib.sanafe_delivery_launch(
-        fired_tiles.data_ptr(), weights.data_ptr(), counts.data_ptr(),
-        src_tiles.data_ptr(), dest_offsets.data_ptr(), out_cur.data_ptr(),
-        out_cnt.data_ptr(), n_tiles, tile, int(dtype == torch.float64),
+        *pointers, base + n, base + 2 * n, out_cur.data_ptr(), base,
+        n_tiles, tile, int(max_blocks_per_dest),
+        int(dtype == torch.float64),
         dev.index or 0, torch.cuda.current_stream(dev).cuda_stream,
     )
     if err:
@@ -137,7 +215,7 @@ def delivery_kernel(fired_tiles, weights, counts, src_tiles, dest_offsets,
             + lib.sanafe_delivery_error_string(err).decode()
         )
     delivery_kernel.launches += 1
-    return out_cur, out_cnt
+    return out_cur, scratch[:n].view(torch.bool).view(n_tiles, tile)
 
 
 delivery_kernel.launches = 0

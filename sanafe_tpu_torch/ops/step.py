@@ -37,7 +37,12 @@ from ..models import (
     SOMA_MODEL_LIF,
     SOMA_MODEL_TRUENORTH,
 )
-from .delivery import delivery_kernel, delivery_plain, sorted_segment_sum
+from .delivery import (
+    delivery_kernel,
+    delivery_plain,
+    pack_arrival_plane,
+    sorted_segment_sum,
+)
 
 # Spike-delivery tile size of the block-dense path (sanafe_tpu's
 # DELIVERY_TILE): delivery runs over the (src-tile, dest-tile) blocks that
@@ -71,9 +76,14 @@ class BlockDelivery:
     src_tiles: torch.Tensor  # [B] int32, block source tile ids
     dest_tiles: torch.Tensor  # [B] int32, sorted ascending
     weights: torch.Tensor  # [B, tile, tile] program dtype, summed edges
-    counts: torch.Tensor  # [B, tile, tile] int8, edge counts (saturated)
+    # [B, tile, tile] int8, edge counts (saturated); None in a program that
+    # delivers through the kernel, which reads `arrivals` instead
+    counts: Optional[torch.Tensor]
     dest_offsets: torch.Tensor  # [n_tiles + 1] int32
     max_blocks_per_dest: int
+    # [B, tile, ceil(tile/32)] int32, counts > 0 packed 32 columns a word
+    # (pack_arrival_plane); only in a program that delivers through the kernel
+    arrivals: Optional[torch.Tensor] = None
 
 
 def build_block_delivery(
@@ -306,7 +316,8 @@ def make_device_program(
     ``use_kernel`` takes the place of ``use_pallas``: ``None`` means "on
     CUDA" (float32 and float64). With the kernel on, the program is built as
     sanafe_tpu builds it with ``pallas_delivery`` set: no dense delivery
-    columns and no ``block_wc``. The TPU kernel's ``tile >= 128`` condition
+    columns and no ``block_wc``; and the block's int8 counts give way to
+    the packed arrival plane the kernel reads (``block.arrivals``). The TPU kernel's ``tile >= 128`` condition
     is its (8, 128) layout's; the CUDA kernel takes every tile size. On the
     CPU the default program is sanafe_tpu's default one."""
     c = compiled
@@ -445,13 +456,20 @@ def make_device_program(
     )
     kernel_delivery = False
     if block is not None:
-        arrays["block_counts"] = block.counts
         arrays["block_src_tiles"] = block.src_tiles
         arrays["block_dest_tiles"] = block.dest_tiles
         arrays["block_weights"] = block.weights
         kernel_delivery = bool(
             use_kernel and not conv_delivery and block.weights.shape[0] > 0
         )
+        if kernel_delivery:
+            # the kernel needs one bit a cell: keep the packed plane and
+            # let the int8 counts go (a byte a cell, 0.93 GB on a 32k chip)
+            block.arrivals = pack_arrival_plane(block.counts)
+            block.counts = None
+            arrays["block_arrivals"] = block.arrivals
+        else:
+            arrays["block_counts"] = block.counts
     sync_delay = c.arch.ts_sync_delay_table.get(c.mapped_tiles)
     models_present = frozenset(int(m) for m in np.unique(c.soma_model))
     n_rollup_cols = 9 + 2 * c.n_cores + len(c.perf_col_names)
@@ -923,9 +941,13 @@ def _block_deliver(prog: DeviceProgram, a, fired_f, n: int):
             acc_wc[:, : blk.tile].reshape(-1)[:n],
             acc_wc[:, blk.tile :].reshape(-1)[:n] > 0,
         )
-    deliver = delivery_kernel if prog.kernel_delivery else delivery_plain
-    acc, cnt = deliver(tiles_f, blk.weights, blk.counts, blk.src_tiles,
-                       blk.dest_offsets, blk.max_blocks_per_dest)
+    if prog.kernel_delivery:
+        acc, arrived = delivery_kernel(
+            tiles_f, blk.weights, blk.arrivals, blk.src_tiles,
+            blk.dest_offsets, blk.max_blocks_per_dest)
+        return acc.reshape(-1)[:n], arrived.reshape(-1)[:n]
+    acc, cnt = delivery_plain(tiles_f, blk.weights, blk.counts, blk.src_tiles,
+                              blk.dest_offsets, blk.max_blocks_per_dest)
     return acc.reshape(-1)[:n], cnt.reshape(-1)[:n] > 0
 
 

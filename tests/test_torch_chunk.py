@@ -13,7 +13,9 @@ tests/test_pallas_chunk.py):
 - potential and u logs, and the state: 1e-6 * max(1, |v|).
 
 The ``cuda`` tests hold the CUDA kernel to ``chunk_plain`` on the card, to
-the same bars; they skip where there is no card. JAX is imported inside the
+the same bars and, across cluster sizes, bit for bit (every cluster size,
+even and ragged column slices, a chunk of one step, Npad 512); they skip
+where there is no card. JAX is imported inside the
 tests that use it, so this file also runs on a machine with only the port:
 ``python -m pytest tests/test_torch_chunk.py -m cuda --noconftest``.
 """
@@ -62,7 +64,7 @@ def make_feeds(compiled, n_steps, seed=0):
     return feeds
 
 
-def run_port(prog, state, feeds, t0=T0, n_steps=T):
+def run_port(prog, state, feeds, t0=T0, n_steps=T, **kernel_args):
     """One chunk through the port's wrapper on the program's device."""
     plan = port_chunk.plan_chunk(prog)
     mats = port_chunk.chunk_tensors(plan, prog.device)
@@ -71,7 +73,7 @@ def run_port(prog, state, feeds, t0=T0, n_steps=T):
         prog, plan, n_steps, t0, feeds
     )
     rows_out, packed = port_chunk.chunk_kernel(
-        plan, mats, rows, t0, n_steps, spike_plane, add_plane
+        plan, mats, rows, t0, n_steps, spike_plane, add_plane, **kernel_args
     )
     dec = port_chunk.decode_packed(
         packed.cpu().numpy(),
@@ -88,15 +90,16 @@ def assert_close(a, b, key):
     assert np.all(np.abs(a - b) <= 1e-6 * np.maximum(1.0, np.abs(a))), key
 
 
-def assert_chunk_match(a, b, state_a, state_b):
+def assert_chunk_match(a, b, state_a, state_b, sum_tol=1e-6):
     np.testing.assert_array_equal(a["counter_sums"], b["counter_sums"])
     np.testing.assert_array_equal(a["masks_packed"], b["masks_packed"])
     np.testing.assert_array_equal(a["spike_log_packed"],
                                   b["spike_log_packed"])
     for i, ref in enumerate(a["energy_sums"]):
-        assert abs(ref - b["energy_sums"][i]) <= 1e-6 * max(abs(ref), 1e-30)
+        assert abs(ref - b["energy_sums"][i]) <= sum_tol * max(abs(ref),
+                                                               1e-30)
     ref = a["sim_time_sum"]
-    assert abs(ref - b["sim_time_sum"]) <= 1e-6 * max(abs(ref), 1e-30)
+    assert abs(ref - b["sim_time_sum"]) <= sum_tol * max(abs(ref), 1e-30)
     assert_close(a["potential_log"], b["potential_log"], "potential_log")
     assert_close(a["u_log"], b["u_log"], "u_log")
     for key in ("refractory", "buffer_valid"):
@@ -184,3 +187,128 @@ def test_chunk_kernel_matches_plain(cuda, name):
         assert launched == (1 if prog.device.type == "cuda" else 0)
     (a, state_a), (b, state_b) = results
     assert_chunk_match(a, b, state_a, state_b)
+
+
+def assert_chunk_identical(a, b, state_a, state_b):
+    """Every output equal bit for bit."""
+    assert a.keys() == b.keys()
+    for key in a:
+        np.testing.assert_array_equal(a[key], b[key], err_msg=key)
+    for key in state_a:
+        np.testing.assert_array_equal(state_a[key], state_b[key], err_msg=key)
+
+
+@pytest.mark.parametrize("name", sorted(CHIPS))
+def test_one_step_chunks_chain_to_one_chunk(name):
+    """chunk_plain over T one-step chunks, the state carried between them,
+    gives the masks, spike bytes, logs and final state of one T-step chunk
+    (exact: the same operations in the same order), and the same counter
+    sums."""
+    _, port_compiled = compile_both(name)
+    steps = 12
+    feeds = make_feeds(port_compiled, steps)
+    prog = port_program(port_compiled, "cpu", torch.float32, **FLAGS)
+    whole, whole_state = run_port(prog, prog.init_state(), feeds,
+                                  n_steps=steps)
+    state = prog.init_state()
+    parts = []
+    for j in range(steps):
+        step_feeds = {k: v[j : j + 1] for k, v in feeds.items()}
+        dec, new_state = run_port(prog, state, step_feeds, t0=T0 + j,
+                                  n_steps=1)
+        parts.append(dec)
+        state = {k: torch.from_numpy(np.asarray(v))
+                 for k, v in new_state.items()}
+    for key in ("masks_packed", "spike_log_packed", "potential_log",
+                "u_log"):
+        np.testing.assert_array_equal(
+            np.concatenate([p[key] for p in parts]), whole[key], err_msg=key)
+    np.testing.assert_array_equal(
+        sum(p["counter_sums"] for p in parts), whole["counter_sums"])
+    for key, value in whole_state.items():
+        np.testing.assert_array_equal(new_state[key], value, err_msg=key)
+
+
+@pytest.mark.parametrize("name", sorted(CHIPS))
+def test_default_cluster_follows_chip_size(name):
+    """The kernel's cluster size comes from the plan alone: the largest
+    cluster unless the chip's busiest step adds under TINY_STEP_BYTES of
+    matrix rows (then one CTA, no cluster barrier); and the plan's columns
+    cut into 16-byte chunks."""
+    _, port_compiled = compile_both(name)
+    plan = port_chunk.plan_chunk(
+        port_program(port_compiled, "cpu", torch.float32, **FLAGS))
+    size = port_chunk.default_cluster(plan)
+    tiny = 2 * plan.n * plan.m_cols * 4 <= port_chunk.TINY_STEP_BYTES
+    assert size == (1 if tiny else port_chunk.MAX_CLUSTER)
+    assert tiny == (name != "random")
+    assert plan.m_cols % 4 == 0
+
+
+def _cuda_runs(compiled, cuda, n_steps, clusters):
+    """chunk_plain on the CPU, then the kernel at each cluster size."""
+    feeds = make_feeds(compiled, n_steps)
+    prog = port_program(compiled, "cpu", torch.float32, **FLAGS)
+    plain = run_port(prog, prog.init_state(), feeds, n_steps=n_steps)
+    prog = port_program(compiled, cuda, torch.float32, **FLAGS)
+    runs = []
+    for size in clusters:
+        before = port_chunk.chunk_kernel.launches
+        runs.append(run_port(prog, prog.init_state(), feeds, n_steps=n_steps,
+                             cluster=size))
+        assert port_chunk.chunk_kernel.launches == before + 1
+    torch.cuda.synchronize()
+    return plain, runs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_steps", [1, 37])
+@pytest.mark.parametrize("name", sorted(CHIPS))
+def test_chunk_kernel_cluster_sizes(cuda, name, n_steps):
+    """Every cluster size 1..16 (most cut M's 16-byte chunks unevenly, and
+    sizes over M/4 leave CTAs with no column) gives the same bits, and
+    they meet chunk_plain; also over a chunk of a single step."""
+    import sanafe_tpu_torch
+    from sanafe_tpu_torch.compile import compile_chip
+
+    compiled = compile_chip(*CHIPS[name](sanafe_tpu_torch))
+    plain, runs = _cuda_runs(compiled, cuda, n_steps, range(1, 17))
+    a, state_a = plain
+    for b, state_b in runs:
+        assert_chunk_match(a, b, state_a, state_b)
+        assert_chunk_identical(runs[0][0], b, runs[0][1], state_b)
+
+
+@pytest.mark.cuda
+def test_chunk_kernel_npad_512(cuda, monkeypatch):
+    """400 neurons pad to 512 lanes, the widest the kernel takes (1024
+    threads hold the 2 * Npad lhs rows); plan_chunk turns the chip away only
+    for the matrix budget it shares with sanafe_tpu, lifted here. The
+    energy sums are held to 1e-5 relative: a step adds some 800 float32
+    rows, the kernel in row order and chunk_plain's matmul on the CPU in
+    its own (measured 1.5e-6 apart on an H100), and the Kahan sums only
+    compensate across steps. Across cluster sizes every bit is equal."""
+    import sanafe_tpu_torch
+    from sanafe_tpu_torch.compile import compile_chip
+
+    from test_torch_chips import random_chip
+
+    monkeypatch.setattr(port_chunk, "MAX_MATRIX_BYTES", 8 << 20)
+    compiled = compile_chip(*random_chip(
+        sanafe_tpu_torch, cores=8, neurons_per_core=50, n_log_potential=16))
+    (a, state_a), runs = _cuda_runs(compiled, cuda, 25, (1, 5, 16))
+    for b, state_b in runs:
+        assert_chunk_match(a, b, state_a, state_b, sum_tol=1e-5)
+        assert_chunk_identical(runs[0][0], b, runs[0][1], state_b)
+
+
+@pytest.mark.cuda
+def test_chunk_kernel_rejects_bad_cluster(cuda):
+    import sanafe_tpu_torch
+    from sanafe_tpu_torch.compile import compile_chip
+
+    compiled = compile_chip(*CHIPS["example"](sanafe_tpu_torch))
+    prog = port_program(compiled, cuda, torch.float32, **FLAGS)
+    for size in (0, 17):
+        with pytest.raises(ValueError, match="cluster"):
+            run_port(prog, prog.init_state(), {}, cluster=size)

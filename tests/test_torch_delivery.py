@@ -11,9 +11,20 @@
   that leave whole tiles silent: exactly on the chip's integer weights, and
   within rtol 1e-12 in float64 on seeded real-valued weights (the per-block
   products are summed by different matmul implementations).
-- The ``cuda`` test holds the CUDA kernel to ``delivery_plain`` on the card
-  (``python -m pytest tests/test_torch_delivery.py -m cuda --noconftest``);
-  it skips where there is no card.
+- What the CUDA kernel reads instead of the int8 counts, the packed arrival
+  plane (``pack_arrival_plane``), unpacked with numpy equals ``counts > 0``
+  of sanafe_tpu's ``build_block_delivery``; the plain version of the
+  kernel's compaction phase (``fired_rows_plain``) equals numpy's
+  ``nonzero`` per tile; ``delivery_packed_plain`` (the wrapper's path for
+  CPU tensors) equals ``delivery_plain``'s currents and ``cnt > 0``. All
+  exact: masks, lists and integer weights.
+- The ``cuda`` tests hold the CUDA kernel to ``delivery_plain`` on the card
+  (``python -m pytest tests/test_torch_delivery.py -m cuda --noconftest``),
+  currents exact on integer weights and arrivals equal to ``cnt > 0``, on
+  the random chip and on edge shapes (tiles under 256 and narrower than a
+  warp's 128-column row, an empty destination tile, source tiles fired
+  whole beside silent ones), in float32 and float64; they skip where there
+  is no card.
 """
 
 import numpy as np
@@ -21,7 +32,14 @@ import pytest
 import torch
 
 import sanafe_tpu_torch
-from sanafe_tpu_torch.ops.delivery import delivery_kernel, delivery_plain
+from sanafe_tpu_torch.ops.delivery import (
+    delivery_kernel,
+    delivery_packed_plain,
+    delivery_plain,
+    fired_rows_plain,
+    pack_arrival_plane,
+    unpack_arrival_plane,
+)
 from sanafe_tpu_torch.ops.step import build_block_delivery
 
 from test_torch_chips import _lif_arch, compile_both, random_chip
@@ -53,6 +71,8 @@ def parallel_edges_chip(mod, n=12, seed=9):
 BUILDS = {
     "example": lambda mod: mod.load_example(),
     "random1024": lambda mod: random_chip(mod, cores=16, neurons_per_core=64),
+    "random2048": lambda mod: random_chip(mod, cores=16,
+                                          neurons_per_core=128),
     "parallel": parallel_edges_chip,
 }
 
@@ -178,21 +198,71 @@ def test_delivery_plain_matches_jax(pattern, weights_kind):
         assert not cur.any() and not cnt.any()
 
 
+@pytest.mark.parametrize("name", ["random1024", "random2048", "parallel"])
+def test_arrival_plane_matches_jax_counts(name):
+    """The packed plane the kernel reads, unpacked with numpy, equals
+    ``counts > 0`` of sanafe_tpu's blocks (exact), 32 columns a word,
+    little end first."""
+    from sanafe_tpu.ops.step import build_block_delivery as jax_build
+
+    jax_compiled, port_compiled = compile_named(name)
+    jb = jax_build(jax_compiled)
+    pb = build_block_delivery(port_compiled, torch.float32, "cpu")
+    plane = pack_arrival_plane(pb.counts)
+    words = -(-pb.tile // 32)
+    assert plane.dtype == torch.int32
+    assert tuple(plane.shape) == (pb.weights.shape[0], pb.tile, words)
+    bits = np.unpackbits(
+        np.ascontiguousarray(plane.numpy()).view(np.uint8), axis=-1,
+        bitorder="little")[:, :, : pb.tile].astype(bool)
+    np.testing.assert_array_equal(bits, np.asarray(jb.counts) > 0)
+    assert torch.equal(unpack_arrival_plane(plane, pb.tile), pb.counts > 0)
+
+
+@pytest.mark.parametrize("tile", [8, 40, 256])
+def test_fired_rows_plain_matches_numpy_nonzero(tile):
+    """The compaction phase's plain version: each tile's ascending
+    fired-row list and its length (exact), zero-padded."""
+    rng = np.random.default_rng(3)
+    fired = rng.random((6, tile)) < 0.4
+    fired[1] = False  # a silent tile
+    fired[2] = True  # a tile fired whole
+    rows, lens = fired_rows_plain(torch.from_numpy(fired.astype(np.float32)))
+    assert rows.dtype == torch.uint8 and lens.dtype == torch.int32
+    for s in range(fired.shape[0]):
+        expect = np.nonzero(fired[s])[0]
+        assert int(lens[s]) == len(expect)
+        np.testing.assert_array_equal(rows[s, : len(expect)].numpy(), expect)
+        assert not rows[s, len(expect):].any()
+
+
+def kernel_args(pb, x):
+    return (x.view(pb.n_tiles, pb.tile), pb.weights,
+            pack_arrival_plane(pb.counts), pb.src_tiles, pb.dest_offsets,
+            pb.max_blocks_per_dest)
+
+
+def plain_args(pb, x):
+    return (x.view(pb.n_tiles, pb.tile), pb.weights, pb.counts,
+            pb.src_tiles, pb.dest_offsets, pb.max_blocks_per_dest)
+
+
 def test_delivery_kernel_takes_plain_for_cpu_tensors():
-    """On CPU tensors the wrapper returns the plain version's result and
-    launches nothing."""
+    """On CPU tensors the wrapper returns the plain version's result
+    (delivery_plain's currents and cnt > 0) and launches nothing."""
     _, port_compiled = compile_both("random1024")
     pb = build_block_delivery(port_compiled, torch.float32, "cpu")
     n = port_compiled.n_neurons
     x = torch.zeros(pb.n_pad)
     x[:n] = torch.from_numpy(fired_pattern(n, pb.tile, "sparse"))
-    args = (x.view(pb.n_tiles, pb.tile), pb.weights, pb.counts,
-            pb.src_tiles, pb.dest_offsets, pb.max_blocks_per_dest)
     before = delivery_kernel.launches
-    a = delivery_kernel(*args)
-    b = delivery_plain(*args)
+    a = delivery_kernel(*kernel_args(pb, x))
+    b = delivery_plain(*plain_args(pb, x))
+    c = delivery_packed_plain(*kernel_args(pb, x))
     assert delivery_kernel.launches == before
-    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert a[1].dtype == torch.bool
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1] > 0)
+    assert torch.equal(c[0], b[0]) and torch.equal(c[1], b[1] > 0)
 
 
 @pytest.fixture()
@@ -202,12 +272,24 @@ def cuda():
     return torch.device("cuda")
 
 
+def hold_kernel_to_plain(pb, x):
+    before = delivery_kernel.launches
+    cur, arrived = delivery_kernel(*kernel_args(pb, x))
+    torch.cuda.synchronize()
+    assert delivery_kernel.launches == before + 1
+    ref_cur, ref_cnt = delivery_plain(*plain_args(pb, x))
+    assert cur.dtype == x.dtype and arrived.dtype == torch.bool
+    assert torch.equal(cur, ref_cur)
+    assert torch.equal(arrived, ref_cnt > 0)
+    return arrived
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("pattern", PATTERNS)
 def test_delivery_kernel_matches_plain(cuda, pattern, dtype):
     """The CUDA kernel against delivery_plain on the same card tensors:
-    currents equal (integer weights) and counts equal."""
+    currents equal (integer weights) and arrivals equal to cnt > 0."""
     from sanafe_tpu_torch.compile import compile_chip
 
     compiled = compile_chip(*BUILDS["random1024"](sanafe_tpu_torch))
@@ -215,12 +297,64 @@ def test_delivery_kernel_matches_plain(cuda, pattern, dtype):
     n = compiled.n_neurons
     x = torch.zeros(pb.n_pad, dtype=dtype, device=cuda)
     x[:n] = torch.from_numpy(fired_pattern(n, pb.tile, pattern)).to(cuda)
-    args = (x.view(pb.n_tiles, pb.tile), pb.weights, pb.counts,
-            pb.src_tiles, pb.dest_offsets, pb.max_blocks_per_dest)
-    before = delivery_kernel.launches
-    cur, cnt = delivery_kernel(*args)
-    torch.cuda.synchronize()
-    assert delivery_kernel.launches == before + 1
-    ref_cur, ref_cnt = delivery_plain(*args)
-    assert torch.equal(cur, ref_cur)
-    assert torch.equal(cnt, ref_cnt)
+    hold_kernel_to_plain(pb, x)
+
+
+def synthetic_blocks(tile, n_tiles, dtype, device, seed=5):
+    """Seeded integer-weight blocks with tile ``tile``: about half of the
+    (source, destination) pairs hold a block, destination tile 1 holds
+    none, and a tenth of a block's cells hold an edge."""
+    from sanafe_tpu_torch.ops.step import BlockDelivery
+
+    rng = np.random.default_rng(seed)
+    pairs = [(d, s) for d in range(n_tiles) for s in range(n_tiles)
+             if d != 1 and rng.random() < 0.5]
+    dest = np.array([d for d, _ in pairs], dtype=np.int32)
+    src = np.array([s for _, s in pairs], dtype=np.int32)
+    counts = (rng.random((len(pairs), tile, tile)) < 0.1) * rng.integers(
+        1, 4, (len(pairs), tile, tile))
+    weights = counts * rng.integers(-8, 9, counts.shape)
+    offsets = np.searchsorted(dest, np.arange(n_tiles + 1)).astype(np.int32)
+    return BlockDelivery(
+        tile=tile, n_tiles=n_tiles, n_pad=n_tiles * tile,
+        src_tiles=torch.from_numpy(src).to(device),
+        dest_tiles=torch.from_numpy(dest).to(device),
+        weights=torch.from_numpy(weights).to(device=device, dtype=dtype),
+        counts=torch.from_numpy(counts.astype(np.int8)).to(device),
+        dest_offsets=torch.from_numpy(offsets).to(device),
+        max_blocks_per_dest=int(np.diff(offsets).max()),
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("tile", [8, 20, 64, 128, 256])
+def test_delivery_kernel_edge_shapes(cuda, tile, dtype):
+    """Tiles under 256, narrower than a warp's 128-column row and (20) not
+    a power of two; an empty destination tile; source tiles fired whole,
+    in part and not at all, in one pattern."""
+    n_tiles = 7
+    pb = synthetic_blocks(tile, n_tiles, dtype, cuda)
+    rng = np.random.default_rng(tile)
+    fired = rng.random((n_tiles, tile)) < 0.3
+    fired[0] = True
+    fired[2] = False
+    fired[3] = True
+    fired[5] = False
+    x = torch.from_numpy(fired).to(device=cuda, dtype=dtype).reshape(-1)
+    arrived = hold_kernel_to_plain(pb, x)
+    assert not arrived[1].any()  # no block reaches destination tile 1
+    hold_kernel_to_plain(pb, torch.zeros_like(x))
+    hold_kernel_to_plain(pb, torch.ones_like(x))
+
+
+@pytest.mark.cuda
+def test_delivery_kernel_rejects_bad_arguments(cuda):
+    pb = synthetic_blocks(8, 3, torch.float32, cuda)
+    x = torch.ones(pb.n_pad, device=cuda)
+    args = list(kernel_args(pb, x))
+    with pytest.raises(ValueError, match="arrivals"):
+        delivery_kernel(args[0], args[1], pb.counts, *args[3:])
+    odd = torch.ones((3, 6), device=cuda)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        delivery_kernel(odd, *args[1:])

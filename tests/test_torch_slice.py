@@ -280,6 +280,31 @@ print("spikes", result["spikes"])
     assert int(proc.stdout.split()[1]) > 0
 
 
+@pytest.mark.parametrize("name", ["scheduler.cpp", "cycle_noc.h"])
+def test_native_source_copy_matches_sanafe_tpu(name):
+    """The port compiles its own copy of the native scheduler source. The
+    copy of scheduler.cpp differs from sanafe_tpu's by one added
+    ``#include <cstdio>`` line and cycle_noc.h is identical (exact), so a
+    change to sanafe_tpu's source shows here and not as silent drift; and
+    native.py reads no path under sanafe_tpu/."""
+    import difflib
+
+    from sanafe_tpu_torch import native
+
+    ours = REPO / "sanafe_tpu_torch" / "csrc" / name
+    theirs = REPO / "sanafe_tpu" / "native_src" / name
+    assert native._SRC == REPO / "sanafe_tpu_torch" / "csrc" / "scheduler.cpp"
+    diff = [
+        line for line in difflib.ndiff(
+            theirs.read_text().splitlines(), ours.read_text().splitlines())
+        if line[:2] in ("+ ", "- ")
+    ]
+    expected = ["+ #include <cstdio>"] if name == "scheduler.cpp" else []
+    assert diff == expected
+    text = (REPO / "sanafe_tpu_torch" / "native.py").read_text()
+    assert "native_src" not in text and '"sanafe_tpu"' not in text
+
+
 def _too_big(mod):
     # 400 neurons pad to 512 lanes: the extended matrix exceeds 5 MiB
     return random_chip(mod, cores=8, neurons_per_core=50,
