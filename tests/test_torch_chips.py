@@ -344,6 +344,17 @@ def random2048(mod):
     return random_chip(mod, cores=16, neurons_per_core=128)
 
 
+def lockstep_chip(mod):
+    """The random network with every neuron firing every step: each of the
+    16 cores sends 16 x 4 messages of identical generation delays, so
+    candidate keys tie across cores and receive times across ring slots;
+    the NoC congests (the device tier's tie order moves sim_time about 0.6%
+    from the host sweep), as on the 32,768-neuron chip."""
+    return random_chip(mod, cores=16, neurons_per_core=16,
+                       messages_per_neuron=4, spikes_per_message=2,
+                       spike_percentage=100, n_log_potential=0)
+
+
 # chips the whole-chunk engine takes
 CHIPS = {
     "example": example_chip,
@@ -358,6 +369,7 @@ SCAN_CHIPS = {
     "delay": delay_chip,
     "multitap": multitap_chip,
     "stochastic": stochastic_chip,
+    "lockstep": lockstep_chip,
 }
 ALL_CHIPS = {**CHIPS, **SCAN_CHIPS}
 
