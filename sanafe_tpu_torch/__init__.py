@@ -4,8 +4,9 @@ The port of ``sanafe_tpu`` (JAX, written for a TPU) to PyTorch on an NVIDIA
 H100. It imports ``torch`` and never ``jax`` or ``sanafe_tpu``: the JAX-free
 host modules (builder API, compiler, trace writers, timing replica, native
 scheduler bindings) are carried as copies, and the device path is the
-whole-chunk engine of ``ops/chunk.py`` and the step scan of ``ops/scan.py``,
-with hand-written Hopper kernels under ``csrc/``.
+whole-chunk engine of ``ops/chunk.py``, the step scan of ``ops/scan.py`` and
+the feed-forward (DAG) engine of ``ops/dag_chunk.py``, with hand-written
+Hopper kernels under ``csrc/``.
 
 The same builder API, YAML and netlist front-ends (``load_arch``,
 ``load_net``, ``SpikingNetwork.save``; YAML needs PyYAML, imported when a
@@ -13,13 +14,14 @@ description is read) and ``SpikingChip.load()/sim()`` surface as
 ``sanafe_tpu``.
 """
 
-from ._examples import load_example, load_loihi, load_truenorth
+from ._examples import examples_dir, load_example, load_loihi, load_truenorth
 from .arch import Architecture, load_arch
 from .attributes import Attribute
 from .chip import RunData, SpikingChip
 from .network import NeuronConfiguration, SpikingNetwork, load_net
 from .network import SpikingNetwork as Network
 from .yaml_arch import DescriptionParsingError
+from . import layers
 
 __all__ = [
     "Architecture",
@@ -30,6 +32,7 @@ __all__ = [
     "RunData",
     "SpikingChip",
     "SpikingNetwork",
+    "examples_dir",
     "load_arch",
     "load_example",
     "load_loihi",

@@ -1,16 +1,22 @@
 """SpikingChip: the user-facing simulator object, on PyTorch.
 
 Counterpart of ``sanafe_tpu/chip.py``. Each chunk of timesteps runs on one
-of two device engines, chosen as sanafe_tpu's ``_make_chunk_runner`` chooses:
+of three device engines, chosen as sanafe_tpu's ``_make_chunk_runner`` and
+``make_scan`` choose:
 
 - the whole-chunk engine (``ops/chunk.py``) for a chip it accepts (at most
   128 cores and 384 neurons, built-in LIF / TrueNorth / Input somas, plain
   accumulator dendrites): one launch of the CUDA kernel per chunk
   (``device="cuda"``, float32) or the kernel's plain PyTorch version
   (``device="cpu"``);
+- the feed-forward engine (``ops/dag_chunk.py``) for a float32 conv net
+  whose groups form a DAG (the DVS-gesture net): one batched convolution
+  per hyperedge and one launch of the level kernel per level and chunk
+  (``ops/level_scan.py``), wherever the step scan would otherwise run;
 - the step scan (``ops/scan.py``) for every other chip, for the perf trace,
   for float64 on CUDA and for the device sweep, with block delivery through
-  the CUDA delivery kernel on the card (``ops/delivery.py``).
+  the CUDA delivery kernel on the card (``ops/delivery.py``) and conv
+  delivery by strided convolutions (``ops/conv.py``).
 
 Detailed timing is swept on the host by default (the native C++ scheduler,
 OpenMP across a chunk's steps). ``sim(device_sweep=True)`` (or
@@ -52,6 +58,7 @@ from .ops.chunk import (
     state_from_rows,
     state_rows,
 )
+from .ops.dag_chunk import make_dag_body, plan_dag, run_dag
 from .ops.merge_sweep import default_merge_cap, make_merge_sweep
 from .ops.scan import run_scan
 from .ops.step import DeviceProgram, initial_state, make_device_program
@@ -256,13 +263,14 @@ class _TraceState:
 @dataclass
 class _Engine:
     """One device program with the engine that runs its chunks: the
-    whole-chunk engine (its plan and device operands) or, with ``plan``
-    None, the step scan."""
+    whole-chunk engine (its plan and device operands), the DAG engine (its
+    body) or, with both None, the step scan."""
 
     prog: DeviceProgram
     plan: Any = None
     mats: Optional[dict] = None
-    # "chunk_kernel", "chunk_plain" or "scan": result["device_engine"]
+    dag: Any = None
+    # "chunk_kernel", "chunk_plain", "dag" or "scan": result["device_engine"]
     name: str = "scan"
 
 
@@ -480,8 +488,8 @@ class SpikingChip:
         pymodule.cpp:549). Same keywords and result dict as
         ``sanafe_tpu.SpikingChip.sim``; ``result["device_engine"]`` names
         the engine that ran: the whole-chunk engine (``"chunk_kernel"`` on
-        CUDA, ``"chunk_plain"`` on the CPU) or the step scan
-        (``"scan"``).
+        CUDA, ``"chunk_plain"`` on the CPU), the feed-forward engine
+        (``"dag"``) or the step scan (``"scan"``).
 
         ``device_sweep`` (``None``: ``SANAFE_TPU_DEVICE_SWEEP == "1"``)
         sweeps detailed timing on the device (``ops/merge_sweep.py``) on the
@@ -536,7 +544,7 @@ class SpikingChip:
         )
         # the perf trace needs per-step stats rows, the chunk kernel runs
         # float32 only and the device sweep reads the scan's masks: all three
-        # take the step scan
+        # take the step scan, or the DAG engine where it takes the program
         engine = self._engine(prog_key, perf_on or use_device_sweep or (
             self.device.type == "cuda" and self.dtype != torch.float32))
         sweep = self._sweep() if use_device_sweep else None
@@ -629,9 +637,10 @@ class SpikingChip:
 
     def _engine(self, prog_key: tuple, use_scan: bool) -> _Engine:
         """The device engine for one set of recording flags, built once.
-        As sanafe_tpu's ``_make_chunk_runner`` chooses: the whole-chunk
-        engine when it takes the program and ``use_scan`` is false, else
-        the step scan."""
+        As sanafe_tpu's ``_make_chunk_runner`` and ``make_scan`` choose: the
+        whole-chunk engine when it takes the program and ``use_scan`` is
+        false; else the DAG engine when ``plan_dag`` takes the program (the
+        perf trace and the device sweep included); else the step scan."""
         engine = self._engines.get(prog_key + (use_scan,))
         if engine is not None:
             return engine
@@ -650,7 +659,11 @@ class SpikingChip:
             )
             self._programs[prog_key] = prog
         plan = None if use_scan else plan_chunk(prog)
-        if plan is None:
+        dag_plan = plan_dag(prog) if plan is None else None
+        if dag_plan is not None:
+            engine = _Engine(prog, dag=make_dag_body(prog, dag_plan),
+                             name="dag")
+        elif plan is None:
             engine = _Engine(prog, name="scan")
         else:
             engine = _Engine(
@@ -682,11 +695,17 @@ class SpikingChip:
     def _run_chunk(self, engine: _Engine, t0: int, length: int,
                    sweep=None) -> dict[str, torch.Tensor]:
         """Run one chunk; the state stays on the device. Returns the chunk's
-        output tensors: the scan's named outputs (with ``sweep``, the device
-        sweep's too), or the whole-chunk engine's byte buffer as
-        ``packed``."""
+        output tensors: the scan's named outputs, which the DAG engine also
+        gives (with ``sweep``, the device sweep's too), or the whole-chunk
+        engine's byte buffer as ``packed``."""
         prog, plan = engine.prog, engine.plan
         feeds = self._build_feeds(length)
+        if engine.dag is not None:
+            # plan_dag takes no program that needs host feeds
+            self._device_state, outputs = run_dag(
+                engine.dag, prog, self._device_state, t0, length, sweep
+            )
+            return outputs
         if plan is None:
             self._device_state, outputs = run_scan(
                 prog, self._device_state, t0, length, feeds, sweep

@@ -70,6 +70,8 @@
 
 #include <cstdint>
 
+#include "lif_update.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -233,33 +235,31 @@ __global__ void __launch_bounds__(kThreads, 1) chunk_kernel(const Args a) {
       float v2 = v, u2 = u, refr2 = refr;
 
       if (a.has_lif) {
-        // LoihiLifModel::update (src/models.cpp:497-567)
-        const bool upd_l = fabsf(v) > 0.f || valid || bias_nz || force;
-        float u_l = t > 1 ? u * PAR(P_INPUT_DECAY) : u;
-        float v_l = t > 1 ? v * PAR(P_LEAK_DECAY) : v;
-        v_l = truncf(v_l * 64.f) / 64.f;
-        if (a.add_plane) v_l = v_l + add;
-        const bool active = !(refr > 0.f);
-        const float u_new = u_l + in_cur;
-        const float v_new = (v_l + PAR(P_BIAS)) + u_new;
-        if (active) u_l = u_new;
-        const bool fired_l = active && v_new > PAR(P_THRESH);
-        float v_act = v_new;
-        if (fired_l && PAR(P_RM_HARD) > 0.f) v_act = PAR(P_RESET);
-        if (fired_l && PAR(P_RM_SOFT) > 0.f) v_act = v_act - PAR(P_THRESH);
-        const bool rev = v_act < PAR(P_RTHRESH);
-        if (rev && PAR(P_RRM_SOFT) > 0.f) v_act = v_act - PAR(P_RTHRESH);
-        if (rev && PAR(P_RRM_HARD) > 0.f) v_act = PAR(P_RRESET);
-        if (rev && PAR(P_RRM_SAT) > 0.f) v_act = PAR(P_RTHRESH);
-        if (active) v_l = v_act;
-        float refr_l = fired_l ? PAR(P_REFR_DELAY) : refr;
-        refr_l = fmaxf(0.f, refr_l - 1.f);
+        // LoihiLifModel::update (src/models.cpp:497-567; lif_update.cuh)
+        LifParams<float> lp;
+        lp.bias = PAR(P_BIAS);
+        lp.leak_decay = PAR(P_LEAK_DECAY);
+        lp.input_decay = PAR(P_INPUT_DECAY);
+        lp.threshold = PAR(P_THRESH);
+        lp.reverse_threshold = PAR(P_RTHRESH);
+        lp.reset = PAR(P_RESET);
+        lp.reverse_reset = PAR(P_RRESET);
+        lp.refractory_delay = PAR(P_REFR_DELAY);
+        lp.force = force;
+        lp.rm_hard = PAR(P_RM_HARD) > 0.f;
+        lp.rm_soft = PAR(P_RM_SOFT) > 0.f;
+        lp.rrm_hard = PAR(P_RRM_HARD) > 0.f;
+        lp.rrm_soft = PAR(P_RRM_SOFT) > 0.f;
+        lp.rrm_sat = PAR(P_RRM_SAT) > 0.f;
+        const LifStep<float> l =
+            lif_step(lp, v, u, refr, valid, cur, t, a.add_plane != nullptr,
+                     add);
         if (PAR(P_IS_LIF) > 0.f) {
-          v2 = v_l;
-          u2 = u_l;
-          refr2 = refr_l;
-          fired = fired || fired_l;
-          updated = updated || upd_l;
+          v2 = l.v;
+          u2 = l.u;
+          refr2 = l.refractory;
+          fired = fired || l.fired;
+          updated = updated || l.updated;
         }
       }
 

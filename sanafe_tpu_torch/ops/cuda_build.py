@@ -2,10 +2,11 @@
 
 Each kernel source ``csrc/<name>_kernel.cu`` has a plain C interface and is
 compiled by ``nvcc`` (sm_90a) into ``build/libsanafe_<name>.so`` at first
-use, or when the source is newer than the library. ``build`` starts one
-``nvcc`` per stale source, all at once, and waits for them all. The
-compiler's resource report (registers, shared memory, spills) is kept beside
-each library in ``build/libsanafe_<name>.log``.
+use, or when the source or a shared header ``csrc/*.cuh`` is newer than the
+library. ``build`` starts one ``nvcc`` per stale source, all at once, and
+waits for them all. The compiler's resource report (registers, shared
+memory, spills) is kept beside each library in
+``build/libsanafe_<name>.log``.
 """
 
 from __future__ import annotations
@@ -50,14 +51,17 @@ class KernelLibrary:
         return self.path.with_suffix(".log")
 
     def stale(self) -> bool:
+        inputs = [self.source, *self.source.parent.glob("*.cuh")]
+        newest = max(path.stat().st_mtime for path in inputs)
         return not (self.path.exists() and self.path.stat().st_mtime
-                    >= self.source.stat().st_mtime)
+                    >= newest)
 
 
 CHUNK = KernelLibrary("chunk")
 DELIVERY = KernelLibrary("delivery")
 MERGE = KernelLibrary("merge")
-ALL = (CHUNK, DELIVERY, MERGE)
+LEVEL = KernelLibrary("level")
+ALL = (CHUNK, DELIVERY, MERGE, LEVEL)
 
 
 def _nvcc() -> str:

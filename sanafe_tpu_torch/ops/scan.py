@@ -15,8 +15,8 @@ sanafe_tpu's scan:
 - ``masks_packed`` [T, 2, ceil(N/8)] uint8: the fired and updated masks.
 
 Fused-roll-up programs without dense delivery emit the fired/updated planes
-from the loop and run one batched roll-up after it (``rollup_stats``), as
-sanafe_tpu does. With a device sweep (``make_scan(device_sweep=True)``: the
+from the loop and run one batched roll-up after it (``rollup_stats``, shared
+with the DAG engine of ``ops/dag_chunk.py``), as sanafe_tpu does. With a device sweep (``make_scan(device_sweep=True)``: the
 merge sweep of ``ops/merge_sweep.py``), the sweep runs after the loop on the
 chunk's masks, still on the device, and adds
 
@@ -32,57 +32,15 @@ launch overhead here; capturing the step in a CUDA graph is later work.
 
 from __future__ import annotations
 
-import contextlib
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
+from .conv import full_float32_matmul
+from .dag_chunk import rollup_stats
 from .device_sweep import unpack_masks
 from .step import DeviceProgram, _timestep
-
-
-def rollup_stats(prog: DeviceProgram, a, fired_f, upd_f):
-    """Batched fused roll-up (sanafe_tpu/ops/dag_chunk.py:rollup_stats): ONE
-    ``[T, 2N] @ [2N, K]`` product gives every per-step counter, energy and
-    per-core latency sum (column layout: ``build_rollup_matrix``), then the
-    simple-timing step time as the max over the per-core latency sums
-    (src/schedule.cpp:61-102). Returns ``(stats [T, 11], opt_perf or
-    None)``."""
-    lhs = torch.cat([fired_f, upd_f], dim=1)
-    # the product in float64, rounded once: a float32 GEMM's accumulation
-    # order follows the kernel cuBLAS picks for the shape, so the chunk
-    # length moved the energies (on an H100, a 4096-neuron chip's soma
-    # energy came out up to 1.6e-5 from float64 as one 1024-step product,
-    # 2.4e-7 as eight 128-step ones; scripts/h100_sweep_probe.py)
-    matrix = a["rollup_matrix"]
-    r = (lhs.double() @ matrix.double()).to(matrix.dtype) + (
-        a["rollup_const"][None])
-    n_cores = prog.compiled.n_cores
-    lat0, msg0 = 9, 9 + n_cores
-    opt0 = msg0 + n_cores
-    total_energy = r[:, 5] + r[:, 6] + r[:, 7] + r[:, 8]
-    sim_time = torch.maximum(
-        r[:, lat0:msg0].max(dim=1).values,
-        r[:, msg0:opt0].max(dim=1).values,
-    ) + prog.sync_t
-    stats = torch.cat(
-        [r[:, :9], total_energy[:, None], sim_time[:, None]], dim=1
-    )
-    opt_perf = r[:, opt0:] if "perf_col_fired" in a else None
-    return stats, opt_perf
-
-
-@contextlib.contextmanager
-def _full_float32_matmul():
-    """The roll-up and one-hot products run in full float32, as XLA runs
-    them: TF32 stays off for their duration."""
-    saved = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 def run_scan(prog: DeviceProgram, state: dict, t0: int, length: int,
@@ -101,7 +59,7 @@ def run_scan(prog: DeviceProgram, state: dict, t0: int, length: int,
         for key, value in (feeds or {}).items()
     }
     steps: dict[str, list] = {}
-    with _full_float32_matmul():
+    with full_float32_matmul():
         for j in range(length):
             step_feeds = {key: value[j] for key, value in chunk_feeds.items()}
             state, out = _timestep(prog, a, state, t0 + j, step_feeds,

@@ -8,19 +8,23 @@ compiled chip to device tensors by the JAX package's rules and byte budgets
 - neuron phase = masked LIF / TrueNorth / Input soma updates
   (``process_neurons``, src/chip.cpp:624-654);
 - message phase = block-dense delivery (``_block_deliver``: the delivery
-  kernel of ``ops/delivery.py``, or an einsum + sorted segment sum) or, for
-  chips with per-edge dendrite state, a per-edge scatter
-  (``_scatter_delivery``: delay rings, multitap cables);
+  kernel of ``ops/delivery.py``, or an einsum + sorted segment sum), conv
+  delivery for conv2d hyperedges (``ops/conv.py``, with block delivery of
+  the edges no conv spec covers) or, for chips with per-edge dendrite
+  state, a per-edge scatter (``_scatter_delivery``: delay rings, multitap
+  cables);
 - roll-up = the 11 stats counters/energies and the simple timing model,
   from per-neuron aggregates or one matvec against the fused roll-up
   matrix.
 
 ``ops/scan.py`` loops ``_timestep`` over a chunk. The whole-chunk engine
-(``ops/chunk.py``) reads the same program for the small chips it takes.
+(``ops/chunk.py``) reads the same program for the small chips it takes, and
+the feed-forward engine (``ops/dag_chunk.py``) for the conv nets it takes.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Optional
 
@@ -37,6 +41,7 @@ from ..models import (
     SOMA_MODEL_LIF,
     SOMA_MODEL_TRUENORTH,
 )
+from .conv import ConvDelivery, build_conv_delivery, conv_arrays, conv_deliver
 from .delivery import (
     delivery_kernel,
     delivery_plain,
@@ -279,9 +284,9 @@ class DeviceProgram:
     # the block delivery runs through the CUDA kernel of ops/delivery.py
     # (sanafe_tpu's pallas_delivery)
     kernel_delivery: bool = False
-    # sanafe_tpu would deliver this chip's conv2d hyperedges by strided
-    # convolutions (ConvDelivery); `block` then holds only the leftover edges
-    conv_delivery: bool = False
+    # this chip's conv2d hyperedges are delivered by strided convolutions
+    # (ops/conv.py); `block` then holds only the leftover edges
+    conv_delivery: Optional[ConvDelivery] = None
     # Statically known set of soma model ids present on this chip
     models_present: frozenset = frozenset()
     # every per-step reduction is one [2N] @ [2N, K] matvec (float32 only)
@@ -442,25 +447,30 @@ def make_device_program(
         arrays["is_tap_dest"] = iarr(
             c.dendrite_model == DENDRITE_MODEL_MULTITAP, torch.bool)
 
-    # sanafe_tpu's build_conv_delivery applies to chips with conv2d
-    # hyperedges and plain accumulator dendrites; the block arrays then
-    # carry only the edges no conv spec covers
-    conv_delivery = bool(
-        c.conv_specs
-        and not (c.has_delay_dendrite or c.has_multitap or c.has_plugin_comp)
-        and c.edge_from_conv is not None
-    )
+    # conv2d hyperedges are delivered by strided convolutions unless
+    # SANAFE_CONV_DELIVERY=0 (as sanafe_tpu/ops/step.py:920 reads it): the
+    # block arrays then carry only the edges no conv spec covers. With it
+    # set to 0 every edge takes block delivery, through the kernel on CUDA.
+    conv_delivery = None
+    if os.environ.get("SANAFE_CONV_DELIVERY", "1") != "0":
+        conv_delivery = build_conv_delivery(c)
+    if conv_delivery is not None:
+        arrays.update(conv_arrays(conv_delivery, dtype, device))
     block = build_block_delivery(
         c, dtype, device,
-        edge_subset=~np.asarray(c.edge_from_conv) if conv_delivery else None,
+        edge_subset=(~np.asarray(c.edge_from_conv)
+                     if conv_delivery is not None else None),
     )
     kernel_delivery = False
     if block is not None:
         arrays["block_src_tiles"] = block.src_tiles
         arrays["block_dest_tiles"] = block.dest_tiles
         arrays["block_weights"] = block.weights
+        # a conv program never delivers its leftover edges through the
+        # kernel (sanafe_tpu/ops/step.py:942)
         kernel_delivery = bool(
-            use_kernel and not conv_delivery and block.weights.shape[0] > 0
+            use_kernel and conv_delivery is None
+            and block.weights.shape[0] > 0
         )
         if kernel_delivery:
             # the kernel needs one bit a cell: keep the packed plane and
@@ -536,11 +546,34 @@ def make_device_program(
 # --- soma models -------------------------------------------------------------
 
 def _lif_update(prog: DeviceProgram, a, state, valid, current, t: int):
-    """LoihiLifModel::update vectorized (src/models.cpp:497-567)."""
-    v = state["potential"]
-    u = state["input_current"]
-    refractory = state["refractory"]
-    zero = torch.zeros((), dtype=prog.dtype, device=v.device)
+    """LoihiLifModel::update vectorized (src/models.cpp:497-567), with the
+    replayed noise stream of chips that have one."""
+    noise = lif_noise(a, t, prog.dtype) if "lif_noise_values" in a else None
+    return lif_step(a, state["potential"], state["input_current"],
+                    state["refractory"], valid, current, t, noise)
+
+
+def lif_noise(a, t, dtype: torch.dtype) -> torch.Tensor:
+    """The LIF noise added at step ``t`` (src/models.cpp:578-651): per unit,
+    each member consumes one masked value per step in slot order. Every lane
+    gets its (possibly zero) noise, as in sanafe_tpu, so that a -0.0
+    potential becomes +0.0 the same way. ``t`` is an int or an int64 column
+    ``[T, 1]``, which gives the ``[T, n]`` noise plane of a chunk."""
+    idx = (t - 1) * a["lif_noise_stride"] + a["lif_noise_rank"]
+    has_noise = a["lif_noise_len"] > 0
+    wrapped = torch.where(
+        has_noise, idx % torch.clamp(a["lif_noise_len"], min=1), 0
+    )
+    return a["lif_noise_values"][
+        a["lif_noise_start"] + wrapped
+    ] * has_noise.to(dtype)
+
+
+def lif_step(a, v, u, refractory, valid, current, t: int, noise=None):
+    """One LIF update of every lane of ``a``'s parameter vectors, ``noise``
+    added to the quantised potential where given. Returns (v, u,
+    refractory, updated, fired)."""
+    zero = torch.zeros((), dtype=v.dtype, device=v.device)
 
     updated = (
         (v.abs() > 0.0)
@@ -555,19 +588,7 @@ def _lif_update(prog: DeviceProgram, a, state, valid, current, t: int):
     # 64ths fixed-point quantization, truncating toward zero
     # (src/models.cpp:447-455)
     v = torch.trunc(v * 64.0) / 64.0
-    if "lif_noise_values" in a:
-        # Replayed noise stream (src/models.cpp:578-651): per unit, each
-        # member consumes one masked value per step in slot order. Every
-        # lane adds its (possibly zero) noise, as in sanafe_tpu, so a -0.0
-        # potential becomes +0.0 the same way.
-        idx = (t - 1) * a["lif_noise_stride"] + a["lif_noise_rank"]
-        has_noise = a["lif_noise_len"] > 0
-        wrapped = torch.where(
-            has_noise, idx % torch.clamp(a["lif_noise_len"], min=1), 0
-        )
-        noise = a["lif_noise_values"][
-            a["lif_noise_start"] + wrapped
-        ] * has_noise.to(prog.dtype)
+    if noise is not None:
         v = v + noise
 
     active = ~(refractory > 0)
@@ -648,17 +669,19 @@ def _truenorth_update(prog: DeviceProgram, a, state, valid, current,
     return v_after, updated, fired
 
 
-def _input_update(prog: DeviceProgram, a, t: int):
+def _input_update(prog: DeviceProgram, a, t):
     """InputModel::update vectorized (src/models.cpp:863-903): spike-train
     inputs advance by the number of neurons sharing their unit each step;
-    rate inputs fire every ``interval`` steps. The train index is int64."""
+    rate inputs fire every ``interval`` steps. The train index is int64.
+    ``t`` is an int or an int64 column ``[T, 1]``, which gives the
+    ``[T, n]`` spikes of a chunk."""
     idx = (t - 1) * a["input_train_stride"] + a["input_train_rank"]
     in_range = idx < a["input_train_len"]
     gather_idx = torch.clamp(a["input_train_start"] + idx, min=0)
     gather_idx = torch.clamp(gather_idx, max=a["input_trains"].shape[0] - 1)
     spike = in_range & a["input_trains"][gather_idx]
     interval = a["input_rate_interval"]
-    step = torch.full_like(interval, t)
+    step = t if isinstance(t, torch.Tensor) else torch.full_like(interval, t)
     rate_spike = (interval > 0) & (
         torch.remainder(step, torch.clamp(interval, min=1)) == 0
     )
@@ -675,7 +698,7 @@ def _timestep(prog: DeviceProgram, a, state, t: int, feeds=None,
 
     ``defer_rollup=True`` (fused-roll-up programs only) emits the fired and
     updated planes instead of the stats, for one batched roll-up over the
-    chunk (``ops/scan.py:rollup_stats``)."""
+    chunk (``ops/dag_chunk.py:rollup_stats``)."""
     feeds = feeds or {}
     c = prog.compiled
     dtype = prog.dtype
@@ -741,11 +764,14 @@ def _timestep(prog: DeviceProgram, a, state, t: int, feeds=None,
         stats, opt_perf = _rollup_from_row(prog, a, r[:K])
         buffer_current = r[K : K + n]
         any_input = r[K + n :] > 0
-    elif prog.conv_delivery:
-        raise _not_ported(
-            "conv2d hyperedge delivery (ConvDelivery) in the step scan",
-            "ROADMAP.md section 1, 'DAG/conv engine'",
-        )
+    elif prog.conv_delivery is not None:
+        # one strided convolution per conv2d hyperedge, plus block delivery
+        # of the leftover edges on top
+        buffer_current, any_input = conv_deliver(prog, a, fired_f)
+        if prog.block is not None and prog.block.weights.shape[0] > 0:
+            blk_cur, blk_any = _block_deliver(prog, a, fired_f, n)
+            buffer_current = buffer_current + blk_cur
+            any_input = any_input | blk_any
     elif prog.block is not None:
         buffer_current, any_input = _block_deliver(prog, a, fired_f, n)
     else:
@@ -949,6 +975,39 @@ def _block_deliver(prog: DeviceProgram, a, fired_f, n: int):
     acc, cnt = delivery_plain(tiles_f, blk.weights, blk.counts, blk.src_tiles,
                               blk.dest_offsets, blk.max_blocks_per_dest)
     return acc.reshape(-1)[:n], cnt.reshape(-1)[:n] > 0
+
+
+def _block_deliver_rows(prog: DeviceProgram, a, fired_rows, n: int):
+    """``_block_deliver`` over the rows of ``fired_rows`` [R, n] (0/1 in the
+    program dtype), all rows in one product, each summed over its blocks in
+    the same order as one step: returns (currents [R, n], any_input
+    [R, n]). Not for a kernel-delivery program (the DAG engine takes
+    none)."""
+    blk = prog.block
+    rows = fired_rows.shape[0]
+    if blk.weights.shape[0] == 0:
+        return (torch.zeros((rows, n), dtype=prog.dtype, device=prog.device),
+                torch.zeros((rows, n), dtype=torch.bool, device=prog.device))
+    fired_pad = torch.zeros((rows, blk.n_pad), dtype=prog.dtype,
+                            device=prog.device)
+    fired_pad[:, :n] = fired_rows
+    xs = fired_pad.view(rows, blk.n_tiles, blk.tile)[:, a["block_src_tiles"]]
+
+    def deliver(x, w):  # [n_tiles, R, cols]
+        y = torch.einsum("rbi,bij->brj", x, w)
+        return sorted_segment_sum(y, blk.dest_offsets,
+                                  blk.max_blocks_per_dest)
+
+    if "block_wc" in a:
+        acc_wc = deliver(xs, a["block_wc"])
+        acc, cnt = acc_wc[:, :, : blk.tile], acc_wc[:, :, blk.tile :]
+    else:  # as delivery_plain: the counts summed in float32
+        acc = deliver(xs, blk.weights)
+        cnt = deliver(xs.to(torch.float32), blk.counts.to(torch.float32))
+    return (
+        acc.transpose(0, 1).reshape(rows, -1)[:, :n],
+        cnt.transpose(0, 1).reshape(rows, -1)[:, :n] > 0,
+    )
 
 
 def _scatter_delivery(prog: DeviceProgram, a, c, state, fired, n: int):

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 
 import sanafe_tpu_torch
+import sanafe_tpu_torch.tutorial
 
 
 def example_chip(mod):
@@ -353,6 +354,160 @@ def lockstep_chip(mod):
     return random_chip(mod, cores=16, neurons_per_core=16,
                        messages_per_neuron=4, spikes_per_message=2,
                        spike_percentage=100, n_log_potential=0)
+
+
+def dvs_chip(mod, log_spikes=True):
+    """The DVS-gesture acceptance net (``sanafe_tpu_torch.tutorial.
+    dvs_gesture``, tutorial 5's recipe) built with ``mod``'s builder API."""
+    import importlib
+
+    importlib.import_module(mod.__name__ + ".tutorial")
+    return sanafe_tpu_torch.tutorial.dvs_gesture(log_spikes, api=mod)
+
+
+def _dag_cfg(mod, threshold, bias):
+    Attribute = mod.Attribute
+    return mod.NeuronConfiguration(
+        model_attributes={
+            "threshold": Attribute(threshold),
+            "bias": Attribute(bias),
+            "leak_decay": Attribute(0.875),
+            "reset": Attribute(0.0),
+        },
+        log_spikes=True,
+    )
+
+
+def mini_dag_chip(mod, inputs=False):
+    """The miniature DVS of tests/test_dag_chunk.py:_build on
+    ``load_loihi()``: a bias-driven 2x16x16 input plane, a 3x3 conv to a
+    4x14x14 hidden layer, a dense 2-neuron head, plus a level-skipping
+    sparse edge pair that lands as leftover block delivery (three levels,
+    1,298 neurons). With ``inputs`` the input plane is input-model somas
+    instead, each on a seeded spike train. Its convs take the structured
+    path only when ``BULK_EDGE_THRESHOLD`` is lowered
+    (``low_bulk_threshold``)."""
+    Attribute = mod.Attribute
+    arch = mod.load_loihi()
+    net = mod.SpikingNetwork()
+    in_c, in_h, in_w = 2, 16, 16
+    out_c, k = 4, 3
+    out_h = out_w = in_h - k + 1
+    if inputs:
+        in_cfg = mod.NeuronConfiguration(soma_hw_name="demo_inputs",
+                                         log_spikes=True)
+    else:
+        in_cfg = _dag_cfg(mod, 1.0, 0.0)
+    gin = net.create_neuron_group("in", in_c * in_h * in_w, in_cfg)
+    ghid = net.create_neuron_group("hid", out_c * out_h * out_w,
+                                   _dag_cfg(mod, 0.5, 0.0))
+    gout = net.create_neuron_group("out", 2, _dag_cfg(mod, 0.75, 0.0))
+    trains = np.random.default_rng(5).random((len(gin.neurons), 48)) < 0.3
+    for i, nrn in enumerate(gin):
+        if inputs:
+            nrn.set_attributes(model_attributes={
+                "spikes": Attribute([bool(x) for x in trains[i]])})
+        else:
+            nrn.set_attributes(
+                model_attributes={"bias": Attribute(0.25 + (i % 4) * 0.0625)}
+            )
+    nk = k * k * in_c * out_c
+    kernel = [((i * 11) % 9 - 4) / 16.0 for i in range(nk)]
+    gin.connect_neurons_conv2d(
+        ghid,
+        {"weight": [Attribute(w) for w in kernel]},
+        convolution=in_w,
+        input_height=in_h,
+        input_channels=in_c,
+        kernel_width=k,
+        kernel_height=k,
+        kernel_count=out_c,
+        stride_width=1,
+        stride_height=1,
+    )
+    dense_w = [((i * 7 + j * 3) % 5 - 2) / 8.0
+               for i in range(len(ghid.neurons)) for j in range(2)]
+    ghid.connect_neurons_dense(
+        gout, {"weight": [Attribute(w) for w in dense_w]}
+    )
+    gin.connect_neurons_sparse(
+        gout, {"weight": [Attribute(0.5), Attribute(-0.25)]},
+        [(0, 0), (5, 1)],
+    )
+    cores = arch.cores()
+    for i, nrn in enumerate(list(gin) + list(ghid) + list(gout)):
+        nrn.map_to_core(cores[i % 8])
+    return arch, net
+
+
+def conv_chip(mod, seed=7, in_w=6, in_h=6, in_c=2, k=3, out_c=3, stride=1,
+              dense_tail=True):
+    """The small conv net of tests/test_conv_delivery.py:_build_conv_net on
+    ``load_loihi()``: an input grid -> a conv -> an optional dense head,
+    integer weights drawn from ``seed``, biases that make layer 0 fire on
+    its own, neurons spread round-robin over the first four cores. Its
+    convs take the structured path only when ``BULK_EDGE_THRESHOLD`` is
+    lowered (``low_bulk_threshold``)."""
+    Attribute = mod.Attribute
+    rng = np.random.default_rng(seed)
+    arch = mod.load_loihi()
+    net = mod.SpikingNetwork()
+
+    def cfg(threshold, bias):
+        return mod.NeuronConfiguration(
+            model_attributes={
+                "threshold": Attribute(threshold),
+                "reset": Attribute(0.0),
+                "bias": Attribute(bias),
+                "leak_decay": Attribute(1.0),
+            },
+            log_spikes=True,
+        )
+
+    g0 = net.create_neuron_group("g0", in_w * in_h * in_c, cfg(2.0, 1.0))
+    out_w = (in_w - k) // stride + 1
+    out_h = (in_h - k) // stride + 1
+    g1 = net.create_neuron_group("g1", out_w * out_h * out_c, cfg(5.0, 0.0))
+    wts = rng.integers(-3, 4, size=k * k * in_c * out_c).astype(float)
+    g0.connect_neurons_conv2d(
+        g1,
+        {"weight": [Attribute(float(w)) for w in wts]},
+        convolution=in_w,
+        input_height=in_h,
+        input_channels=in_c,
+        kernel_width=k,
+        kernel_height=k,
+        kernel_count=out_c,
+        stride_width=stride,
+        stride_height=stride,
+    )
+    groups = [g0, g1]
+    if dense_tail:
+        g2 = net.create_neuron_group("g2", 4, cfg(3.0, 0.0))
+        dw = rng.integers(-2, 3, size=len(g1) * 4).astype(float)
+        g1.connect_neurons_dense(
+            g2, {"weight": [Attribute(float(w)) for w in dw]}
+        )
+        groups.append(g2)
+    cores = arch.cores()
+    i = 0
+    for g in groups:
+        for neuron in g:
+            neuron.map_to_core(cores[i % 4])
+            i += 1
+    return arch, net
+
+
+@pytest.fixture()
+def low_bulk_threshold(monkeypatch):
+    """Lower ``BULK_EDGE_THRESHOLD`` to 1 in both packages, so that even a
+    tiny conv2d hyperedge is recorded as a conv spec and delivered by the
+    structured path (as tests/test_conv_delivery.py does)."""
+    import sanafe_tpu.network
+    import sanafe_tpu_torch.network
+
+    monkeypatch.setattr(sanafe_tpu.network, "BULK_EDGE_THRESHOLD", 1)
+    monkeypatch.setattr(sanafe_tpu_torch.network, "BULK_EDGE_THRESHOLD", 1)
 
 
 # chips the whole-chunk engine takes

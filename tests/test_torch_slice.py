@@ -359,16 +359,25 @@ def test_requests_outside_the_slice_raise(tmp_path, monkeypatch,
         # float64 keeps the chip off the fused dense delivery
         "conv_delivery": {"perf_trace": True},
     }[request_kind]
+    if request_kind == "conv_delivery":
+        # conv2d delivery was outside the earlier slices; it is ported now
+        # (ops/conv.py), so the request runs on the step scan and matches
+        # sanafe_tpu's float64 scan (tests/test_torch_dvs.py holds the rest)
+        import sanafe_tpu.network as jax_network
+        import sanafe_tpu_torch.network as port_network
+
+        monkeypatch.setattr(port_network, "BULK_EDGE_THRESHOLD", 1)
+        monkeypatch.setattr(jax_network, "BULK_EDGE_THRESHOLD", 1)
+        chip = loaded(st, _conv_chip, device="cpu", dtype=torch.float64)
+        assert chip.compiled.conv_specs
+        b = chip.sim(10, heartbeat=0, **kwargs)
+        a = loaded(sf, _conv_chip).sim(10, heartbeat=0, **kwargs)
+        assert b["device_engine"] == "scan" and a["spikes"] > 0
+        assert_match(a, b, 1e-12)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         if request_kind == "plugin_soma":
             loaded(st, _plugin_soma, device="cpu")
-        elif request_kind == "conv_delivery":
-            import sanafe_tpu_torch.network as port_network
-
-            monkeypatch.setattr(port_network, "BULK_EDGE_THRESHOLD", 1)
-            chip = loaded(st, _conv_chip, device="cpu", dtype=torch.float64)
-            assert chip.compiled.conv_specs
-            chip.sim(10, heartbeat=0, **kwargs)
         else:
             chip = loaded(st, example_chip, device="cpu")
             chip.sim(10, heartbeat=0, **kwargs)
