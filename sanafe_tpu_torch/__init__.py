@@ -10,7 +10,10 @@ Hopper kernels under ``csrc/``.
 
 The same builder API, YAML and netlist front-ends (``load_arch``,
 ``load_net``, ``SpikingNetwork.save``; YAML needs PyYAML, imported when a
-description is read) and ``SpikingChip.load()/sim()`` surface as
+description is read), ``SpikingChip.load()/sim()``, runtime attribute
+updates (``mapped_neuron_groups``), ``.npz`` checkpoints, Python plugin
+soma models (``models.register_soma_model``, ``plugins.load_plugin``) and
+the command line (``python -m sanafe_tpu_torch.cli``) surface as
 ``sanafe_tpu``.
 """
 
@@ -18,24 +21,30 @@ from ._examples import examples_dir, load_example, load_loihi, load_truenorth
 from .arch import Architecture, load_arch
 from .attributes import Attribute
 from .chip import RunData, SpikingChip
+from .compile import HardwareMappingError
+from .models import ModelSpec, get_builtin_models, register_model
 from .network import NeuronConfiguration, SpikingNetwork, load_net
 from .network import SpikingNetwork as Network
 from .yaml_arch import DescriptionParsingError
-from . import layers
+from . import layers, plugins
 
 __all__ = [
     "Architecture",
     "Attribute",
     "DescriptionParsingError",
+    "HardwareMappingError",
+    "ModelSpec",
     "Network",
     "NeuronConfiguration",
     "RunData",
     "SpikingChip",
     "SpikingNetwork",
     "examples_dir",
+    "get_builtin_models",
     "load_arch",
     "load_example",
     "load_loihi",
     "load_net",
     "load_truenorth",
+    "register_model",
 ]

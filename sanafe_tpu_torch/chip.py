@@ -26,7 +26,14 @@ the host then sweeps only the steps the device flagged.
 
 The host half is the JAX package's: the per-chunk decode, the exact float64
 perf energies, the detailed and cycle timing sweeps of the native C++
-scheduler, the trace writers and the run summary.
+scheduler, the trace writers and the run summary. So are the runtime
+surface (``mapped_neuron_groups`` and ``MappedNeuron.set_attributes``
+between sims, ``save_state``/``load_state`` in sanafe_tpu's ``.npz``
+format) and the environment knobs it reads: ``SANAFE_TPU_ASYNC_TRACE=0``
+writes trace files on the calling thread, ``SANAFE_TPU_EXACT_ENERGY=0``
+keeps the device's perf energies in float64, ``SANAFE_TPU_HEAD_CHUNK`` sets
+the head and tail chunks of a host-swept run (default 128), and
+``SANAFE_TPU_ROLLUP_BYTES`` the fused roll-up's budget (``ops/step.py``).
 
 A request the port cannot serve raises ``NotImplementedError`` naming the
 ROADMAP item that ports it; nothing silently runs another engine or another
@@ -39,7 +46,9 @@ import os
 import sys
 import threading
 import time
+import warnings
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Any, Optional
 
 import numpy as np
@@ -274,6 +283,83 @@ class _Engine:
     name: str = "scan"
 
 
+class MappedNeuron:
+    """View of one neuron mapped onto a loaded chip; ``set_attributes``
+    mutates the chip's compiled arrays in place (reference
+    ``MappedNeuron::set_attributes``, src/pymodule.cpp:502-527), as
+    sanafe_tpu's ``MappedNeuron`` does."""
+
+    def __init__(self, chip: "SpikingChip", ref):
+        self._chip = chip
+        self._ref = ref
+
+    @property
+    def group_name(self) -> str:
+        return self._ref.group_name
+
+    @property
+    def offset(self) -> int:
+        return self._ref.offset
+
+    @property
+    def id(self) -> int:
+        return self._ref.global_id
+
+    def get_potential(self) -> float:
+        state = self._chip._device_state
+        if state is None:
+            return float(self._chip.compiled.initial_potential[self._ref.slot])
+        return float(state["potential"][self._ref.slot])
+
+    def set_attributes(self, model_attributes: dict | None = None) -> None:
+        """Write LIF, TrueNorth and plugin soma parameters into the compiled
+        chip and ``potential`` into the live state on its device; the
+        chip's programs, engines and sweeps rebuild on the next sim()."""
+        from .compile import (
+            _apply_lif_attribute,
+            _apply_truenorth_attribute,
+            _plugin_param_array,
+        )
+        from .models import (
+            SOMA_MODEL_LIF,
+            SOMA_MODEL_PLUGIN_BASE,
+            SOMA_MODEL_TRUENORTH,
+        )
+        from .network import _wrap_attribute_dict
+
+        chip = self._chip
+        c = chip.compiled
+        ref = self._ref
+        slot = ref.slot
+        attrs = _wrap_attribute_dict(model_attributes or {})
+        model_id = ref.soma_unit.spec.soma_model_id
+        for key, attribute in attrs.items():
+            if not attribute.forward_to_soma:
+                continue
+            if model_id == SOMA_MODEL_LIF:
+                _apply_lif_attribute(c, slot, key, attribute)
+            elif model_id == SOMA_MODEL_TRUENORTH:
+                _apply_truenorth_attribute(c, slot, key, attribute)
+            elif model_id >= SOMA_MODEL_PLUGIN_BASE:
+                spec = ref.soma_unit.spec
+                if key in spec.param_defaults:
+                    _plugin_param_array(c, spec, key)[slot] = (
+                        attribute.as_float()
+                    )
+        # 'potential' writes live state directly (the reference sets
+        # cx.potential on the loaded compartment)
+        if "potential" in attrs and chip._device_state is not None:
+            state = dict(chip._device_state)
+            potential = state["potential"].clone()
+            potential[slot] = attrs["potential"].as_float()
+            state["potential"] = potential
+            chip._device_state = state
+        chip._invalidate_programs()
+
+    def __repr__(self) -> str:
+        return f"MappedNeuron({self.group_name}.{self.offset})"
+
+
 class SpikingChip:
     """A loaded chip simulated on ``device`` in ``dtype``.
 
@@ -401,6 +487,26 @@ class SpikingChip:
     def _init_state(self) -> dict:
         return initial_state(self.compiled, self.dtype, self.device)
 
+    @property
+    def mapped_neuron_groups(self) -> dict[str, list]:
+        """Group name → list of MappedNeuron views supporting runtime
+        attribute updates between sim() calls (src/pymodule.cpp:502-527)."""
+        if self.compiled is None:
+            return {}
+        return {
+            name: [MappedNeuron(self, self.compiled.neurons[s])
+                   for s in slots]
+            for name, slots in self.compiled.groups.items()
+        }
+
+    def _invalidate_programs(self) -> None:
+        """Force device programs, engines and sweeps to rebuild from the
+        (mutated) compiled arrays on the next sim() call; live state is
+        preserved."""
+        self._programs.clear()
+        self._engines.clear()
+        self._sweeps.clear()
+
     def _migrate_state(self, old_compiled, old_state) -> dict:
         """Carry live per-neuron state across a recompile: existing neurons
         keep their values at their (possibly shifted) new slots; new
@@ -431,12 +537,14 @@ class SpikingChip:
 
     def load_state_arrays(self, arrays: dict) -> None:
         """Set the live neuron state from host arrays, e.g. the arrays of a
-        ``sanafe_tpu`` chip's ``.npz`` checkpoint (``save_state``):
+        ``.npz`` checkpoint of either package (``save_state``):
         ``potential``, ``input_current``, ``refractory`` (int),
         ``buffer_current``, ``buffer_valid`` (bool), on chips with those
-        dendrites ``delay_ring`` ([max_delay + 1, n]) and ``tap_voltages``
-        ([n, max_taps]), and optionally ``__total_timesteps__``, which sets
-        the chip's timestep counter."""
+        dendrites ``delay_ring`` ([max_delay + 1, n]), ``tap_voltages``
+        ([n, max_taps]) and ``comp_buffer`` ([n, max_plugin_comp]), each
+        plugin model's ``plugin_<name>_<var>`` ([n]), and optionally
+        ``__total_timesteps__``, which sets the chip's timestep counter.
+        Each array is cast to the chip's dtype for its key."""
         if self.compiled is None:
             raise RuntimeError("No network loaded; call load() first")
         template = self._init_state()
@@ -465,6 +573,57 @@ class SpikingChip:
         self._device_state = state
         if "__total_timesteps__" in arrays:
             self.total_timesteps = int(arrays["__total_timesteps__"])
+
+    def save_state(self, path: str | Path) -> None:
+        """Checkpoint the simulation state (the state tensors and the
+        timestep counter) as sanafe_tpu's ``.npz`` format: one array per
+        state key, with sanafe_tpu's keys and dtypes, plus
+        ``__total_timesteps__`` (int64), so that either package resumes a
+        file the other wrote. A suffix-less path writes ``<path>.npz`` with
+        a warning, as sanafe_tpu does where orbax is absent. Any other path
+        would be an orbax checkpoint directory in sanafe_tpu, which the
+        port does not write: it raises."""
+        if self.compiled is None:
+            raise RuntimeError("No network loaded; call load() first")
+        path = self._npz_path(path, "save_state")
+        if path.suffix == "":
+            path = path.with_suffix(".npz")
+            warnings.warn(f"save_state: writing '{path}' (the .npz format; "
+                          "directory checkpoints need orbax)")
+        state = self._device_state
+        if state is None:
+            state = self._init_state()
+        arrays = {key: value.detach().cpu().numpy()
+                  for key, value in state.items()}
+        arrays["__total_timesteps__"] = np.int64(self.total_timesteps)
+        np.savez_compressed(path, **arrays)
+
+    def load_state(self, path: str | Path) -> None:
+        """Restore a ``.npz`` checkpoint written by :meth:`save_state` of
+        either package (``load_state_arrays`` checks its keys and shapes). A
+        suffix-less path reads ``<path>.npz`` where that file exists, as
+        sanafe_tpu does; a directory (orbax) checkpoint raises."""
+        if self.compiled is None:
+            raise RuntimeError("No network loaded; call load() first")
+        path = Path(path)
+        if path.suffix == "" and not path.is_dir() and (
+                path.with_suffix(".npz").is_file()):
+            path = path.with_suffix(".npz")
+        path = self._npz_path(path, "load_state")
+        with np.load(path) as data:
+            arrays = {key: data[key] for key in data.files}
+        self.load_state_arrays(arrays)
+
+    @staticmethod
+    def _npz_path(path: str | Path, what: str) -> Path:
+        path = Path(path)
+        if path.is_dir() or path.suffix not in ("", ".npz"):
+            raise ValueError(
+                f"{what}: {path} is not a .npz file; sanafe_tpu_torch reads "
+                "and writes the .npz checkpoint format only (sanafe_tpu's "
+                "directory checkpoints need orbax)"
+            )
+        return path
 
     # --- simulation ----------------------------------------------------------
     def sim(
@@ -533,7 +692,8 @@ class SpikingChip:
         # float64 parity path whenever perf rows are produced; float32
         # programs keep the device sums.
         self._exact_energy = None
-        if perf_on and self.dtype == torch.float64:
+        if (perf_on and self.dtype == torch.float64
+                and os.environ.get("SANAFE_TPU_EXACT_ENERGY", "1") != "0"):
             self._exact_energy = self._get_exact_energy()
         prog_key = (
             need_messages or timing_model in ("detailed", "cycle")
@@ -548,7 +708,9 @@ class SpikingChip:
         engine = self._engine(prog_key, perf_on or use_device_sweep or (
             self.device.type == "cuda" and self.dtype != torch.float32))
         sweep = self._sweep() if use_device_sweep else None
-        taper = (TAPER_CHUNK if timing_model in ("detailed", "cycle")
+        taper = (int(os.environ.get("SANAFE_TPU_HEAD_CHUNK",
+                                    str(TAPER_CHUNK)))
+                 if timing_model in ("detailed", "cycle")
                  and not use_device_sweep else 0)
         schedule = _plan_chunks(timesteps, chunk, taper)
         if schedule and engine.plan is not None and not engine.plan.fits(
@@ -565,8 +727,9 @@ class SpikingChip:
         self.close()
         self._open_traces(spike_trace, potential_trace, neuron_trace,
                           perf_trace, message_trace, write_trace_headers)
-        if any(state.sink.stream is not None
-               for state in self._trace_states.values()):
+        if os.environ.get("SANAFE_TPU_ASYNC_TRACE", "1") != "0" and any(
+                state.sink.stream is not None
+                for state in self._trace_states.values()):
             self._trace_writer = _AsyncTraceWriter()
         if self._device_state is None:
             self._device_state = engine.prog.init_state()

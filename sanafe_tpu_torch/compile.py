@@ -487,12 +487,10 @@ def build_hardware(
                     plugin_path = unit_cfg.model_info.plugin_library_path
                     if not plugin_path:
                         raise
-                    raise NotImplementedError(
-                        f"plugin model {unit_cfg.model_info.name!r} "
-                        f"({plugin_path}): plugin models are not ported to "
-                        "sanafe_tpu_torch yet (ROADMAP.md section 1, "
-                        "'Plugin models')"
-                    )
+                    from .plugins import load_plugin
+
+                    load_plugin(plugin_path)
+                    spec = get_model(unit_cfg.model_info.name)
                 # check_implemented: arch section flags must be a subset of the
                 # model's capabilities (src/core.cpp:225-227)
                 if unit_cfg.implements_synapse and not spec.implements_synapse:

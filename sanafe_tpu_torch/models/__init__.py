@@ -5,8 +5,9 @@ factory (``src/models.cpp:933-967``) and loads extra models from ``dlopen``
 plugins (``src/plugins.cpp``). Here a model is a declarative ``ModelSpec``:
 capability flags plus the attribute schema, consumed by the compiler
 (``compile.py``) which lowers per-neuron/per-edge attributes into dense device
-arrays. The port registers the built-in models only; sanafe_tpu's Python
-plugin models (its replacement for the dlopen plugins) are not ported yet.
+arrays. Python-registered models replace the dlopen plugin mechanism (see
+``register_soma_model`` and ``sanafe_tpu_torch/plugins.py``); their update
+functions take and return torch tensors.
 """
 
 from __future__ import annotations
@@ -152,6 +153,7 @@ CURRENT_BASED_ATTRIBUTES = {
 }
 
 _REGISTRY: dict[str, ModelSpec] = {}
+_next_plugin_id = SOMA_MODEL_PLUGIN_BASE
 
 
 def register_model(spec: ModelSpec) -> None:
@@ -162,6 +164,51 @@ def get_model(name: str) -> ModelSpec:
     if name not in _REGISTRY:
         raise ValueError(f"Pipeline model not supported ({name})")
     return _REGISTRY[name]
+
+
+def register_soma_model(
+    name: str,
+    update: Callable,
+    params: dict[str, float] | None = None,
+    state: dict[str, float] | None = None,
+    attributes: dict[str, str] | None = None,
+    dendrite_compartments: int = 0,
+    shared_unit_state: bool = False,
+) -> ModelSpec:
+    """Register a Python soma model (the dlopen-plugin replacement).
+
+    ``update(params, state, valid, current, t)`` receives dicts of [N]
+    torch tensors of the chip's device and dtype (``valid`` bool,
+    ``current`` the dtype, ``t`` the 1-based timestep as a Python int)
+    and must return ``(new_state, fired, updated, potential)``. A model
+    with ``dendrite_compartments > 0`` also receives ``comp`` [N, K], the
+    per-compartment input sums of the previous step. Reuses the existing id
+    if the name was registered before.
+    """
+    global _next_plugin_id
+    existing = _REGISTRY.get(name)
+    model_id = (
+        existing.soma_model_id if existing is not None else _next_plugin_id
+    )
+    if existing is None:
+        _next_plugin_id += 1
+    spec = ModelSpec(
+        name=name,
+        implements_soma=True,
+        implements_dendrite=dendrite_compartments > 0,
+        attributes=attributes or {},
+        soma_model_id=model_id,
+        dendrite_model_id=(
+            DENDRITE_MODEL_PLUGIN_COMP if dendrite_compartments > 0 else -1
+        ),
+        soma_update=update,
+        param_defaults=dict(params or {}),
+        state_init=dict(state or {}),
+        dendrite_compartments=dendrite_compartments,
+        shared_unit_state=shared_unit_state,
+    )
+    register_model(spec)
+    return spec
 
 
 def get_builtin_models() -> dict[str, dict[str, str]]:
@@ -226,6 +273,6 @@ register_model(
     )
 )
 
-# The built-in Python plugin models of sanafe_tpu (Hodgkin-Huxley, NeuroFEM)
-# are JAX update functions; they are not ported yet (ROADMAP.md section 1,
-# 'Plugin models').
+# Built-in Python plugin models (ports of the reference's dlopen examples)
+from . import hodgkin_huxley  # noqa: E402,F401
+from . import neurofem  # noqa: E402,F401

@@ -61,7 +61,8 @@ CHUNK = KernelLibrary("chunk")
 DELIVERY = KernelLibrary("delivery")
 MERGE = KernelLibrary("merge")
 LEVEL = KernelLibrary("level")
-ALL = (CHUNK, DELIVERY, MERGE, LEVEL)
+PREFIX = KernelLibrary("prefix")
+ALL = (CHUNK, DELIVERY, MERGE, LEVEL, PREFIX)
 
 
 def _nvcc() -> str:

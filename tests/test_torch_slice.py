@@ -239,7 +239,8 @@ def test_state_carried_from_jax_checkpoint(f32, tmp_path):
 
 def test_port_runs_without_jax():
     """sanafe_tpu_torch imports and simulates, on both engines, with jax,
-    sanafe_tpu and yaml blocked, and loads none of them."""
+    sanafe_tpu and yaml blocked, and loads none of them (the CLI, the
+    plugin loader and the plugin models included)."""
     code = """
 import sys
 for name in ("jax", "jaxlib", "sanafe_tpu", "yaml"):
@@ -248,7 +249,8 @@ import torch
 import sanafe_tpu_torch as st
 from sanafe_tpu_torch.ops import (cuda_build, delivery, device_sweep,
                                   exact_energy, merge_sweep, scan)
-from sanafe_tpu_torch import netlist, yaml_arch, yaml_io, yaml_snn
+from sanafe_tpu_torch import cli, netlist, plugins, yaml_arch, yaml_io, yaml_snn
+from sanafe_tpu_torch.models import hodgkin_huxley, neurofem
 from sanafe_tpu_torch.utils import ranges
 arch, net = st.load_example()
 chip = st.SpikingChip(arch, device="cpu")
@@ -375,12 +377,17 @@ def test_requests_outside_the_slice_raise(tmp_path, monkeypatch,
         assert b["device_engine"] == "scan" and a["spikes"] > 0
         assert_match(a, b, 1e-12)
         return
+    if request_kind == "plugin_soma":
+        # plugin somas are ported now (tests/test_torch_plugins.py): an
+        # unregistered model whose plugin is a native library is refused as
+        # sanafe_tpu refuses it, naming register_soma_model
+        for mod, kw in ((sf, {}), (st, {"device": "cpu"})):
+            with pytest.raises(RuntimeError, match="register_soma_model"):
+                loaded(mod, _plugin_soma, **kw)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if request_kind == "plugin_soma":
-            loaded(st, _plugin_soma, device="cpu")
-        else:
-            chip = loaded(st, example_chip, device="cpu")
-            chip.sim(10, heartbeat=0, **kwargs)
+        chip = loaded(st, example_chip, device="cpu")
+        chip.sim(10, heartbeat=0, **kwargs)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

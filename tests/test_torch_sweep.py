@@ -136,6 +136,36 @@ def rel_err(x, ref):
     return np.abs(x - ref) / ref
 
 
+def test_prefix_sum_plain_matches_a_loop():
+    """prefix_sum_plain's rule (ops/device_sweep.py) written out as a
+    Python loop, bit for bit: a float64 running sum from 0 along the row.
+    Rows of seeded latencies spanning six orders of magnitude, zeros and a
+    ragged width; on the CPU ``prefix_kernel`` is the plain version, and
+    the sums are the CPU's ``torch.cumsum`` (the tables the CPU built
+    before the kernel)."""
+    from sanafe_tpu_torch.ops.device_sweep import (
+        library_prefix,
+        prefix_kernel,
+        prefix_sum_plain,
+    )
+
+    rng = np.random.default_rng(5)
+    rows = rng.random((6, 517)) * 10.0 ** rng.integers(-12, -6, (6, 517))
+    rows[:, ::7] = 0.0
+    lat = torch.from_numpy(rows)
+    want = np.zeros((6, 518))
+    for t in range(6):
+        s = 0.0
+        for k, x in enumerate(lat[t].tolist()):
+            s = s + x
+            want[t, k + 1] = s
+    want = torch.from_numpy(want).view(torch.int64)
+    for got in (prefix_sum_plain(lat), prefix_kernel(lat),
+                library_prefix(lat)):
+        assert got.dtype == torch.float64 and got.shape == (6, 518)
+        assert torch.equal(got.view(torch.int64), want)
+
+
 def test_unpack_masks_matches_numpy():
     _, port_c, _, packed = scanned("random")
     fired, updated = unpack_masks(packed, port_c.n_neurons)

@@ -30,6 +30,8 @@ import torch
 import sanafe_tpu as sf
 import sanafe_tpu_torch as st
 
+from test_torch_chips import summary_without_volatile
+
 REPO = Path(__file__).resolve().parent.parent
 GOLDEN = REPO / "tests" / "golden_ref"
 FIXTURES = GOLDEN / "fixtures"
@@ -48,8 +50,8 @@ NETS = {
     "tutorial_snn": ("tutorial_arch", EXAMPLES / "tutorial_snn.yaml", False),
     "snn_hh": ("arch_hh", FIXTURES / "snn_hh.net", True),
 }
-# the pairs the port compiles (the HH plugin soma of snn_hh is not ported)
-COMPILED = ("snn_stoch", "tutorial_snn")
+# the pairs both packages compile (snn_hh with its HH plugin somas)
+COMPILED = ("snn_stoch", "tutorial_snn", "snn_hh")
 
 
 def plain(x):
@@ -223,24 +225,6 @@ def test_arch_missing_section_matches_jax(section):
     assert isinstance(b, st.DescriptionParsingError)
     assert str(b) == str(a)
     assert section in str(b)
-
-
-def summary_without_volatile(text: str) -> list[str]:
-    """run_summary lines minus build id and wall times (host-dependent),
-    as tests/test_reference_parity.py compares them."""
-    lines = []
-    in_wall = False
-    for line in text.splitlines():
-        if line.startswith("build_git_version"):
-            continue
-        if line.startswith("wall_time"):
-            in_wall = True
-            continue
-        if in_wall and line.startswith("  "):
-            continue
-        in_wall = False
-        lines.append(line)
-    return lines
 
 
 @pytest.mark.parametrize("device_sweep", [False, True],
