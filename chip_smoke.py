@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Builds the five CUDA kernels (sanafe_tpu_torch/csrc/*_kernel.cu, one nvcc
-each, started together, into sanafe_tpu_torch/build/) and the native
+Builds the five CUDA kernels (sanafe_tpu_torch/csrc/*_kernel.cu) and the
+kernels' chain floors (scripts/chain_floor.cu), one nvcc each, started
+together, into sanafe_tpu_torch/build/, and the native
 scheduler from the checkout, then runs these phases, each reported on its
 own line:
 
@@ -118,8 +119,9 @@ own line:
    bit, the message tables built on the card equal those the CPU builds
    from the same masks on every step, and the run's sim_time equals the
    merge kernel's on the CPU's tables; the prefix kernel's ms beside
-   prefix_sum_plain's, torch.cumsum's (which adds in another order) and
-   its bound, on DVS's chunk and at the full chip's shape.
+   prefix_sum_plain's, torch.cumsum's (which adds in another order), its
+   bound and its chain floor (a row's dependent float64 adds from
+   registers), on DVS's chunk and at the full chip's shape.
 
 It prints the kernels' JSON record and the card's name and power limit on
 the lines before the last, and as the last line {"ok": true, "device":
@@ -382,6 +384,17 @@ def hh_chip(st, cores=6, neurons_per_core=64, messages_per_neuron=4,
         neuron.set_attributes(soma_hw_name=f"hh[{i % 4}]")
         neuron.map_to_core(chip_cores[i // neurons_per_core])
     return arch, net
+
+
+def chain_floor():
+    """``scripts/chain_floor.py``: the chain floors of the prefix and level
+    kernels (their recurrences from registers)."""
+    scripts = str(Path(__file__).resolve().parent / "scripts")
+    if scripts not in sys.path:
+        sys.path.insert(0, scripts)
+    import chain_floor as module
+
+    return module
 
 
 def card_line() -> str:
@@ -856,7 +869,7 @@ def dvs_phase(st, cuda, card, tmp: Path) -> dict:
         dag_chunk.level_kernel = level_kernel
     del chip
     check(len(calls) == 6, f"DVS: {len(calls)} levels, expected 6")
-    kernel_ms = plain_ms = 0.0
+    kernel_ms = plain_ms = floor_ms = 0.0
     n_bytes = n_ops = 0
     sizes = []
     for args in calls:
@@ -874,6 +887,7 @@ def dvs_phase(st, cuda, card, tmp: Path) -> dict:
                   f"level_plain (size {args[1].shape[0]})")
         kernel_ms += cuda_ms(lambda: level_kernel(*args), 20)
         plain_ms += cuda_ms(lambda: level_plain(*args), 1)
+        floor_ms += cuda_ms(chain_floor().level_floor(args), 20)
         # every input the kernel reads (the parameter vectors of
         # PARAM_KEYS, the state, the [T, size] planes) read once and every
         # output written once
@@ -890,7 +904,9 @@ def dvs_phase(st, cuda, card, tmp: Path) -> dict:
           f"bit; level_kernel {kernel_ms} ms a chunk ({len(calls)} "
           f"launches), level_plain on CUDA tensors {plain_ms} ms; bound "
           f"{level_bound} ms ({level_bound_by}; {n_bytes} B, {n_ops} "
-          f"operations) | {card}", flush=True)
+          f"operations); chain floor {floor_ms} ms (each lane's "
+          f"{DVS_STEPS} LIF steps from registers, six levels) | {card}",
+          flush=True)
     del calls, got, want
     torch.cuda.empty_cache()
 
@@ -1545,7 +1561,9 @@ def fixtures_phase(st, cuda, card, tmp: Path) -> dict:
                                lat.numel(), F64_OPS_S)
             record = {"ms": kernel_ms, "plain_ms": plain_ms,
                       "library_ms": library_ms, "bound_ms": b_ms,
-                      "bound_by": b_by}
+                      "bound_by": b_by,
+                      "floor_ms": cuda_ms(chain_floor().prefix_floor(steps_, n),
+                                          20)}
         print(f"sweep_tables_card_vs_cpu: {label} n={n} float64 {steps} "
               f"steps detailed with device_sweep=True (engine "
               f"{result['device_engine']}): the prefix kernel equals "
@@ -1570,13 +1588,17 @@ def fixtures_phase(st, cuda, card, tmp: Path) -> dict:
           "full shape: the prefix kernel differs from prefix_sum_plain")
     full_bound, _ = bound(lat64.numel() * 8 + CHUNK * (32768 + 1) * 8,
                           lat64.numel(), F64_OPS_S)
+    full_floor = cuda_ms(chain_floor().prefix_floor(CHUNK, 32768), 20)
+    floor = record.pop("floor_ms")
     print(f"prefix_timing: dvs float64 {SWEEP_DVS_STEPS}x18678: prefix_kernel "
           f"{record['ms']} ms, prefix_sum_plain (through the host) "
           f"{record['plain_ms']} ms, torch.cumsum {record['library_ms']} ms, "
-          f"bound {record['bound_ms']} ms ({record['bound_by']}); full "
-          f"float64 {CHUNK}x32768: prefix_kernel {full_ms} ms (bit-equal to "
-          f"prefix_sum_plain), torch.cumsum {full_lib} ms, bound "
-          f"{full_bound} ms | {card}", flush=True)
+          f"bound {record['bound_ms']} ms ({record['bound_by']}), chain "
+          f"floor {floor} ms (a row's dependent float64 adds from "
+          f"registers); full float64 {CHUNK}x32768: prefix_kernel {full_ms} "
+          f"ms (bit-equal to prefix_sum_plain), torch.cumsum {full_lib} ms, "
+          f"bound {full_bound} ms, chain floor {full_floor} ms | {card}",
+          flush=True)
     return dict(record, launches=prefix_launches, max_abs_err=0.0)
 
 
@@ -1611,7 +1633,9 @@ def run(tmp: Path) -> int:
     cuda = torch.device("cuda")
 
     # --- 1. setup ---
-    build_s = cuda_build.build(*cuda_build.ALL)
+    # the kernels and the probes' chain floors (scripts/chain_floor.cu),
+    # one nvcc each, all started together
+    build_s = cuda_build.build(*cuda_build.ALL, chain_floor().FLOOR)
     start = time.perf_counter()
     native.get_library()
     native_s = time.perf_counter() - start

@@ -8,8 +8,9 @@ chunk's T steps. sanafe_tpu runs it as a ``lax.scan`` of ``_lif_update``
 ``level_plain`` is that recurrence in plain PyTorch: a Python loop of
 ``ops/step.py:lif_step`` over the steps, on any device and dtype.
 ``level_kernel`` is the wrapper of ``csrc/level_kernel.cu``: one launch a
-level, one thread per lane with the lane's state in registers; on CPU
-tensors it takes the plain version.
+level, a lane's state in registers, one warp of a CTA running the
+recurrence of 32 lanes while the other feeds it the input rows and stores
+the fired and updated rows; on CPU tensors it takes the plain version.
 
 Both take the level's parameter vectors ``params`` (``bias``,
 ``leak_decay``, ``input_decay``, ``threshold``, ``reverse_threshold``,

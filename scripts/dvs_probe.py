@@ -3,6 +3,7 @@
 
     python scripts/dvs_probe.py conv     # on a card
     python scripts/dvs_probe.py sweep    # on a card
+    python scripts/dvs_probe.py level [--root DIR]   # on a card
     python scripts/dvs_probe.py jax      # on the CPU, with sanafe_tpu
 
 Run from the repository root (``PYTHONPATH=.``); the DVS net is built by
@@ -19,6 +20,15 @@ Run from the repository root (``PYTHONPATH=.``); the DVS net is built by
   native host sweep (max, median, total). Writes
   the npz named by ``DVS_PROBE_NPZ`` (default ``build/dvs_sweep.npz``;
   masks, device and host sim_time).
+- ``level``: the level kernel on the six levels of DVS's first 1000-step
+  DAG chunk (the arguments the engine really gives it), each held bit for
+  bit to ``level_plain``; the chunk's ms (the six launches, CUDA events),
+  the bound (bytes over 3.35 TB/s) and the chain floor
+  (``scripts/chain_floor.cu``: each lane's 1000 LIF steps from registers,
+  the six levels' times summed). With ``--root DIR`` (another checkout,
+  e.g. the parent commit unpacked with ``git archive``) that checkout's
+  level kernel is built too, held to the plain version, and timed in turns
+  with this one: old, new, new, old.
 - ``jax``: the same float64 masks computed on the CPU, swept by
   ``merge_plain`` and by sanafe_tpu's interpret-mode merge sweep, each
   against the host sweep; with that npz present (from a card), the
@@ -27,6 +37,7 @@ Run from the repository root (``PYTHONPATH=.``); the DVS net is built by
 
 from __future__ import annotations
 
+import argparse
 import os
 import sys
 import time
@@ -138,6 +149,89 @@ def probe_sweep() -> None:
     np.savez(OUT, **out)
 
 
+def probe_level(root) -> None:
+    sys.path.insert(0, str(ROOT))
+    import chain_floor  # scripts/: floors, another checkout
+    import chip_smoke
+
+    import sanafe_tpu_torch as st
+    from sanafe_tpu_torch.ops import dag_chunk
+    from sanafe_tpu_torch.ops.level_scan import (
+        PARAM_KEYS,
+        level_kernel,
+        level_plain,
+    )
+    from sanafe_tpu_torch.tutorial import dvs_gesture
+
+    card = chip_smoke.card_line()
+    calls = []
+
+    def capture(*args):
+        calls.append(args)
+        return level_kernel(*args)
+
+    dag_chunk.level_kernel = capture
+    try:
+        arch, net = dvs_gesture(log_spikes=False)
+        chip = st.SpikingChip(arch, device="cuda")
+        chip.load(net)
+        chip.sim(1000, timing_model="simple", heartbeat=0)
+    finally:
+        dag_chunk.level_kernel = level_kernel
+
+    def same(x, y):
+        if x is None or y is None:
+            return x is None and y is None
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        return torch.equal(x, y)
+
+    kernels = [("new", None)] + ([("old", root)] if root else [])
+    for args in calls:
+        want = level_plain(*args)
+        for tag, src in kernels:
+            if src is None:
+                got = level_kernel(*args)
+            else:
+                with chain_floor.using(src, "level"):
+                    got = level_kernel(*args)
+            torch.cuda.synchronize()
+            if not all(same(getattr(want, f), getattr(got, f))
+                       for f in want._fields):
+                raise SystemExit(f"dvs_probe: the {tag} level kernel differs "
+                                 f"from level_plain (size "
+                                 f"{args[1].shape[0]})")
+
+    def chunk_ms():
+        return sum(chip_smoke.cuda_ms(lambda: level_kernel(*args), 20)
+                   for args in calls)
+
+    def old_ms():
+        with chain_floor.using(root, "level"):
+            return chunk_ms()
+
+    order = ((old_ms, "old"), (chunk_ms, "new"), (chunk_ms, "new"),
+             (old_ms, "old")) if root else ((chunk_ms, "new"),
+                                            (chunk_ms, "new"))
+    turns = [(tag, fn()) for fn, tag in order]
+    floors = [chip_smoke.cuda_ms(chain_floor.level_floor(args), 20)
+              for args in calls]
+    n_bytes = n_ops = 0
+    for args in calls:
+        got = level_kernel(*args)
+        tensors = [x for x in (*(args[0][k] for k in PARAM_KEYS), *args[1:7],
+                               *got) if isinstance(x, torch.Tensor)]
+        n_bytes += sum(x.numel() * x.element_size() for x in tensors)
+        n_ops += chip_smoke.LIF_OPS * args[4].numel()
+    bound, by = chip_smoke.bound(n_bytes, n_ops)
+    sizes = [args[1].shape[0] for args in calls]
+    print(f"level_timing: DVS levels {sizes}, {calls[0][4].shape[0]} steps, "
+          f"kernels equal to level_plain bit for bit; ms a chunk (six "
+          f"launches) in turns {turns} (old: {root or 'not timed'}); chain "
+          f"floor {sum(floors)} ms (by level {floors}); bound {bound} ms "
+          f"({by}; {n_bytes} B) | {card}", flush=True)
+
+
 def probe_jax() -> None:
     import jax
 
@@ -183,17 +277,27 @@ def probe_jax() -> None:
 
 
 def main() -> int:
-    probes = {"conv": probe_conv, "sweep": probe_sweep, "jax": probe_jax}
-    names = sys.argv[1:] or ["conv", "sweep"]
+    probes = {"conv": probe_conv, "sweep": probe_sweep,
+              "level": probe_level, "jax": probe_jax}
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("probes", nargs="*", metavar="|".join(probes))
+    parser.add_argument("--root", type=Path, default=None,
+                        help="another checkout whose level kernel is timed "
+                             "in turns with this one (level)")
+    opts = parser.parse_args()
+    names = opts.probes or ["conv", "sweep"]
     if any(name not in probes for name in names):
-        print(f"usage: {sys.argv[0]} [{'|'.join(probes)}]...",
-              file=sys.stderr)
+        parser.print_usage(sys.stderr)
         return 2
     if any(name != "jax" for name in names) and not torch.cuda.is_available():
-        print("dvs_probe: conv and sweep need a CUDA device", file=sys.stderr)
+        print("dvs_probe: conv, sweep and level need a CUDA device",
+              file=sys.stderr)
         return 2
     for name in names:
-        probes[name]()
+        if name == "level":
+            probe_level(opts.root)
+        else:
+            probes[name]()
     return 0
 
 

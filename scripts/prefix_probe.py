@@ -1,7 +1,19 @@
 #!/usr/bin/env python3
-"""The device sweep's sim_time under three orders of the latency prefix sum.
+"""The prefix kernel's time, and the device sweep's sim_time under three
+orders of the latency prefix sum.
 
-    python scripts/prefix_probe.py        # on a card, from the repository root
+    python scripts/prefix_probe.py                # on a card, from the root
+    python scripts/prefix_probe.py --timing-only --root build/parent
+
+Timing (always first): the prefix kernel on seeded float64 latencies at
+DVS's 200-step shape (200 x 18,678) and at the full chip's 1024-step shape
+(1024 x 32,768), each held bit for bit to ``prefix_sum_plain``, its ms by
+CUDA events beside ``torch.cumsum``'s, the bound (bytes over 3.35 TB/s) and
+the chain floor (``scripts/chain_floor.cu``: a row's N dependent float64
+adds from registers). With ``--root DIR`` (another checkout, e.g. the
+parent commit unpacked with ``git archive``) that checkout's prefix kernel
+is built too, held to the plain version, and timed in turns with this one:
+old, new, new, old.
 
 The device sweep (``sanafe_tpu_torch/ops/device_sweep.py``) differences a
 running sum of the neuron latencies into each message's generation delay.
@@ -27,6 +39,7 @@ differ from the ``wide`` ones.
 
 from __future__ import annotations
 
+import argparse
 import sys
 import time
 from pathlib import Path
@@ -38,6 +51,57 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402  (the chips' recipes)
+import chain_floor  # noqa: E402  (scripts/: floors, another checkout)
+
+# (label, rows, cols): DVS's 200-step float64 chunk, the full chip's 1024
+TIMING_SHAPES = (("dvs", 200, 18678), ("full", 1024, 32768))
+REPS = 20
+
+
+def timing(root) -> None:
+    from sanafe_tpu_torch.ops.device_sweep import (
+        prefix_kernel,
+        prefix_sum_plain,
+    )
+
+    card = chip_smoke.card_line()
+    rng = np.random.default_rng(0)
+    for label, rows, cols in TIMING_SHAPES:
+        lat = torch.from_numpy(rng.random((rows, cols)) * 1e-8).to("cuda")
+        want = prefix_sum_plain(lat.cpu()).view(torch.int64)
+        kernels = [("new", None)] + ([("old", root)] if root else [])
+        for tag, src in kernels:
+            if src is None:
+                got = prefix_kernel(lat)
+            else:
+                with chain_floor.using(src, "prefix"):
+                    got = prefix_kernel(lat)
+            torch.cuda.synchronize()
+            if not torch.equal(got.cpu().view(torch.int64), want):
+                raise SystemExit(f"prefix_probe: the {tag} kernel differs "
+                                 f"from prefix_sum_plain at {rows}x{cols}")
+
+        def new_ms():
+            return chip_smoke.cuda_ms(lambda: prefix_kernel(lat), REPS)
+
+        def old_ms():
+            with chain_floor.using(root, "prefix"):
+                return chip_smoke.cuda_ms(lambda: prefix_kernel(lat), REPS)
+
+        order = ((old_ms, "old"), (new_ms, "new"), (new_ms, "new"),
+                 (old_ms, "old")) if root else ((new_ms, "new"),
+                                                (new_ms, "new"))
+        turns = [(tag, fn()) for fn, tag in order]
+        cumsum = chip_smoke.cuda_ms(lambda: torch.cumsum(lat, dim=1), REPS)
+        floor = chip_smoke.cuda_ms(chain_floor.prefix_floor(rows, cols), REPS)
+        bound, by = chip_smoke.bound(lat.numel() * 8 + rows * (cols + 1) * 8,
+                                     lat.numel(), chip_smoke.F64_OPS_S)
+        print(f"prefix_timing: {label} float64 {rows}x{cols}, kernels equal "
+              f"to prefix_sum_plain bit for bit; ms in turns {turns} "
+              f"(old: {root or 'not timed'}); torch.cumsum {cumsum} ms; "
+              f"chain floor {floor} ms ({cols} dependent float64 adds a row "
+              f"from registers); bound {bound} ms ({by}) | {card}",
+              flush=True)
 
 CHIPS = (
     ("mid", chip_smoke.MID, 1024, torch.float32),
@@ -48,6 +112,19 @@ CHIPS = (
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--root", type=Path, default=None,
+                        help="another checkout whose prefix kernel is timed "
+                             "in turns with this one")
+    parser.add_argument("--timing-only", action="store_true")
+    opts = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("prefix_probe: no CUDA device", file=sys.stderr)
+        return 2
+    timing(opts.root)
+    if opts.timing_only:
+        return 0
+
     import sanafe_tpu_torch as st
     from sanafe_tpu_torch.compile import compile_chip
     from sanafe_tpu_torch.native import NativeScheduler

@@ -149,11 +149,11 @@ def _capture_levels(chip_args, steps, device):
     return calls
 
 
-def _random_level(device, size=1500, steps=300, seed=3):
+def _random_level(device, size=1500, steps=300, seed=3, noise=True):
     """A LIF level whose lanes draw every option: hard, soft and no reset,
     reverse soft/hard/saturate resets, refractory delays up to 3, forced
-    updates, leaks, biases, a noise plane, and a non-zero start state;
-    currents and noise off the 1/64 grid."""
+    updates, leaks, biases, a noise plane (unless ``noise`` is False), and
+    a non-zero start state; currents and noise off the 1/64 grid."""
     rng = np.random.default_rng(seed)
     f = lambda *shape: torch.from_numpy(  # noqa: E731
         rng.standard_normal(shape).astype(np.float32)).to(device)
@@ -177,34 +177,54 @@ def _random_level(device, size=1500, steps=300, seed=3):
     r0 = i(3)
     return (params, f(size), f(size) * 0.1, r0, f(steps, size),
             torch.from_numpy(rng.random((steps, size)) < 0.3).to(device),
-            f(steps, size) * 0.05)
+            f(steps, size) * 0.05 if noise else None)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["dvs", "random"])
+@pytest.mark.parametrize("case", ["dvs", "random", "edges"])
 def test_level_kernel_matches_plain(cuda, case):
     """``level_kernel`` equals ``level_plain`` on the same card tensors bit
     for bit (fired, updated, v and u after every step, the final state):
     on every level of the DVS net's first 1024-step chunk, as the DAG
-    engine gives them; and on a random LIF level with noise, every reset
+    engine gives them; on a random LIF level with noise, every reset
     mode and refractory delays, from step 1 (no leak) and from step 40,
-    with and without the v and u planes."""
+    with and without the v and u planes; and at the edges of the kernel's
+    design ("edges"): sizes that are no multiple of 4, 16 or 32 (so a
+    warp's rows start anywhere and the last warp is ragged), chunks of 1,
+    31, 33 and 1000 steps (none a multiple of the ring's 64 steps or of
+    its 8-step batches), from step 1 and from step 40, with and without
+    the noise plane and the v/u planes."""
     from sanafe_tpu_torch.ops.level_scan import level_kernel, level_plain
 
     if case == "dvs":
         calls = _capture_levels(dvs_chip(st, log_spikes=False), 1024, cuda)
         assert len(calls) == 6  # input, conv2d_0..3, dense_0: all LIF
-    else:
+    elif case == "random":
         args = _random_level(cuda)
         calls = [args + (t0, rv, ru) for t0 in (1, 40)
                  for rv, ru in ((True, True), (False, False))]
+    else:
+        calls = []
+        for size in (37, 1000, 7743):
+            for steps in (1, 31, 33, 1000):
+                for noise, planes in ((True, (True, False)),
+                                      (False, (False, True)),
+                                      (True, (False, False)),
+                                      (False, (True, True))):
+                    args = _random_level(cuda, size, steps, seed=size + steps,
+                                         noise=noise)
+                    t0 = 1 if planes[0] == noise else 40
+                    calls.append(args + (t0, *planes))
     before = level_kernel.launches
     for args in calls:
         got = level_kernel(*args)
         want = level_plain(*args)
         torch.cuda.synchronize()
-        _assert_level_equal(want, got, case)
-        assert bool(got.fired.any()) and bool(got.updated.any())
+        _assert_level_equal(want, got, (case, args[1].shape[0],
+                                        args[4].shape[0], args[7]))
+        assert bool(got.updated.any())
+        if args[4].shape[0] > 1:
+            assert bool(got.fired.any())
     assert level_kernel.launches == before + len(calls)
 
 
@@ -239,12 +259,22 @@ def test_dvs_dag_on_cuda_matches_cpu(cuda, tmp_path):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
 @pytest.mark.parametrize("shape", [(1, 1), (33, 129), (200, 4096),
-                                   (1000, 18678), (1024, 32768)])
-def test_prefix_kernel_matches_plain(cuda, shape):
+                                   (1000, 18678), (1024, 32768),
+                                   (1, 0), (5, 0), (1, 2), (3, 3), (1, 100),
+                                   (2, 255), (3, 256), (3, 257), (4, 258),
+                                   (133, 512), (7, 513), (1001, 4097),
+                                   (200, 18678)])
+def test_prefix_kernel_matches_plain(cuda, shape, offset):
     """The prefix kernel adds in prefix_sum_plain's order: equal bit for
-    bit on seeded float64 latencies (a ragged tile, DVS's width over a
-    1000-step chunk, the full chip's), and it counts its launch."""
+    bit on seeded float64 latencies, and it counts its launch. The shapes
+    cover a ragged ring segment (256 doubles a row), DVS's width over a
+    200- and a 1000-step chunk, the full chip's; odd and even N, so that
+    output rows (N + 1 apart) and input rows start on and off 16-byte
+    boundaries; N below one segment and one past it; one row, and row
+    counts that are no multiple of a CTA's rows; N == 0. With ``offset``
+    the input starts one element into its buffer (8 bytes off)."""
     from sanafe_tpu_torch.ops.device_sweep import (
         prefix_kernel,
         prefix_sum_plain,
@@ -252,8 +282,13 @@ def test_prefix_kernel_matches_plain(cuda, shape):
 
     rng = np.random.default_rng(shape[1])
     lat = torch.from_numpy(rng.random(shape) * 1e-8)
+    rows, cols = shape
+    buf = torch.empty(rows * cols + offset, dtype=torch.float64, device=cuda)
+    dev = buf[offset:].view(rows, cols)
+    dev.copy_(lat)
+    assert dev.is_contiguous()
     before = prefix_kernel.launches
-    got = prefix_kernel(lat.to(cuda))
+    got = prefix_kernel(dev)
     torch.cuda.synchronize()
     assert prefix_kernel.launches == before + 1
     want = prefix_sum_plain(lat)
