@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Builds the five CUDA kernels (sanafe_tpu_torch/csrc/*_kernel.cu) and the
+Builds the six CUDA kernels (sanafe_tpu_torch/csrc/*_kernel.cu) and the
 kernels' chain floors (scripts/chain_floor.cu), one nvcc each, started
 together, into sanafe_tpu_torch/build/, and the native
 scheduler from the checkout, then runs these phases, each reported on its
@@ -121,7 +121,28 @@ own line:
    merge kernel's on the CPU's tables; the prefix kernel's ms beside
    prefix_sum_plain's, torch.cumsum's (which adds in another order), its
    bound and its chain floor (a row's dependent float64 adds from
-   registers), on DVS's chunk and at the full chip's shape.
+   registers), on DVS's chunk and at the full chip's shape;
+15. ParameterSweep on the card: 16 thresholds of the full random network
+   (0.5x to 4x the compiled 64, spaced evenly) swept together for 200
+   steps, float32, block delivery through the sample-batched delivery
+   kernel (one launch a step; the single-sample kernel and
+   delivery_batch_plain never run on that path), with the samples x
+   steps/s and a profiled 50-step window's busy share beside phase 6's
+   single chip; samples 0, 7 and 15 against SpikingChip(device="cuda")
+   runs of the same thresholds (counters exact, energies and sim_time
+   within 1e-6 relative); a dynamics-only threshold sweep of the
+   4096-neuron chip (fused roll-up) and a soma_energy_update sweep of it
+   (fusion off) with the same checks; the batched kernel against
+   delivery_batch_plain and, sample by sample, delivery_kernel, bit for
+   bit, at 1, 3, 16, 33 and 64 samples (a different fired pattern in each
+   sample) on full's blocks (float32) and the 4096-neuron chip's
+   (float64), and with per-sample weights and arrival planes on the
+   latter; the kernel's ms at 1, 4, 16 and 64 samples of full's step-50
+   pattern beside 16 launches of delivery_kernel, delivery_batch_plain's
+   ms, torch.mm of the 16 fired rows against the dense float32 matrix (the
+   library call; timed only) and the bound (the larger of the union's
+   fired rows and arrival bits over 3.35 TB/s and one float add a cell a
+   sample over 33.5 T adds/s).
 
 It prints the kernels' JSON record and the card's name and power limit on
 the lines before the last, and as the last line {"ok": true, "device":
@@ -180,6 +201,14 @@ HH_PROFILE_STEPS = 10
 HH_MID_STEPS = 200
 HH_MID_LOG = 64  # mid HH neurons that log their potential
 SWEEP_DVS_STEPS = 200
+PARAM_SAMPLES = 16  # phase 15: the full chip's threshold sweep
+PARAM_STEPS = 200
+PARAM_PROFILE_STEPS = 50
+PARAM_CHECKED = (0, 7, 15)  # samples held to single-chip runs
+PARAM_MID_SCALES = (0.5, 1.0, 2.0, 4.0)  # mid's threshold sweep
+PARAM_COST_SCALES = (1.0, 2.0, 10.0)  # mid's soma_energy_update sweep
+BATCH_CHECKS = (1, 3, 16, 33, 64)
+BATCH_TIMINGS = (1, 4, 16, 64)
 # arch_hh.yaml's soma costs (tests/golden_ref/fixtures/arch_hh.yaml)
 HH_COSTS = {
     "energy_access_neuron": 20.0e-12, "latency_access_neuron": 3.0e-9,
@@ -193,6 +222,8 @@ TRACES = ("spikes", "potentials", "perf", "messages")
 HBM_BYTES_S = 3.35e12
 F32_OPS_S = 67e12
 F64_OPS_S = 34e12
+# float32 adds a second: the 67 TFLOP/s above counts an FMA as two
+F32_ADDS_S = F32_OPS_S / 2
 COUNTERS = ("spikes", "neurons_fired", "neurons_updated", "packets_sent")
 
 
@@ -207,7 +238,7 @@ def check(ok: bool, what: str) -> None:
 
 def random_chip(st, cores=6, neurons_per_core=64, messages_per_neuron=4,
                 spikes_per_message=4, spike_percentage=50, seed=1,
-                n_log_potential=32):
+                n_log_potential=32, threshold=64):
     """The TCAD'25 random network (scripts/tcad2025/random_network.py) on
     load_loihi(): 384 neurons at the defaults, every neuron logs spikes,
     the first ``n_log_potential`` log their potential."""
@@ -220,7 +251,7 @@ def random_chip(st, cores=6, neurons_per_core=64, messages_per_neuron=4,
         "pop", n,
         st.NeuronConfiguration(
             model_attributes={
-                "threshold": Attribute(64),
+                "threshold": Attribute(threshold),
                 "reset": Attribute(0),
                 "force_update": Attribute(True),
             },
@@ -474,6 +505,7 @@ def reset_counts() -> None:
 
     chunk.chunk_kernel.launches = 0
     delivery.delivery_kernel.launches = 0
+    delivery.delivery_batch_kernel.launches = 0
     merge_sweep.merge_kernel.launches = 0
     level_scan.level_kernel.launches = 0
     device_sweep.prefix_kernel.launches = 0
@@ -485,6 +517,7 @@ def read_counts() -> dict:
 
     return {"chunk_kernel": chunk.chunk_kernel.launches,
             "delivery_kernel": delivery.delivery_kernel.launches,
+            "delivery_batch_kernel": delivery.delivery_batch_kernel.launches,
             "merge_kernel": merge_sweep.merge_kernel.launches,
             "level_kernel": level_scan.level_kernel.launches,
             "prefix_kernel": device_sweep.prefix_kernel.launches}
@@ -600,13 +633,13 @@ def device_busy(prof) -> tuple:
     return busy, top[:6]
 
 
-def fired_tiles(blk, n: int, pattern: str, dtype, device):
+def fired_tiles(blk, n: int, pattern: str, dtype, device, seed: int = 7):
     """A [n_tiles, tile] 0/1 fired plane: no neuron, a seeded half of one
     source tile, a seeded 25%, every neuron, or ("mixed") every other
     source tile fired whole and the rest silent."""
     import torch
 
-    rng = np.random.default_rng(7)
+    rng = np.random.default_rng(seed)
     fired = np.zeros(blk.n_pad, dtype=bool)
     if pattern == "one_tile":
         lo = blk.tile if blk.n_tiles > 1 else 0
@@ -1602,6 +1635,296 @@ def fixtures_phase(st, cuda, card, tmp: Path) -> dict:
     return dict(record, launches=prefix_launches, max_abs_err=0.0)
 
 
+def check_sample(out: dict, i: int, ref: dict, name: str) -> None:
+    """Sample ``i`` of a ParameterSweep result against a single chip's
+    simple run: counters exact, energies and sim_time within REL_TOL."""
+    for key in COUNTERS:
+        check(int(out[key][i]) == ref[key],
+              f"{name}: {key} {int(out[key][i])} vs {ref[key]}")
+    pairs = [(out["energy"][k][i], ref["energy"][k]) for k in ref["energy"]]
+    pairs.append((out["sim_time"][i], ref["sim_time"]))
+    for x, y in pairs:
+        check(bool(np.isfinite(x)) and abs(x - y) <= REL_TOL * max(abs(y),
+                                                                   1e-30),
+              f"{name}: energy or sim_time {x} vs {y}")
+
+
+def batch_planes(blk, n: int, samples: int, dtype, device):
+    """[samples, n_tiles, tile] fired planes: sample b takes pattern
+    ``PATTERNS[b % 5]`` with its own seed."""
+    import torch
+
+    return torch.stack([
+        fired_tiles(blk, n, PATTERNS[b % len(PATTERNS)], dtype, device,
+                    seed=7 + b)
+        for b in range(samples)])
+
+
+def hold_batch(x, weights, arrivals, blk, name: str) -> float:
+    """The batched kernel against delivery_batch_plain on the same card
+    tensors and against delivery_kernel sample by sample, bit for bit;
+    returns the largest absolute difference from the plain version."""
+    import torch
+
+    from sanafe_tpu_torch.ops import delivery
+
+    args = (weights, arrivals, blk.src_tiles, blk.dest_offsets,
+            blk.max_blocks_per_dest)
+    cur, arrived = delivery.delivery_batch_kernel(x, *args)
+    ref_cur, ref_arrived = delivery.delivery_batch_plain(x, *args)
+    torch.cuda.synchronize()
+    check(same_bits(cur, ref_cur), f"{name}: currents differ from "
+          "delivery_batch_plain")
+    check(torch.equal(arrived, ref_arrived),
+          f"{name}: arrivals differ from delivery_batch_plain")
+    for b in range(x.shape[0]):
+        w_b = weights[b] if weights.dim() == 4 else weights
+        a_b = arrivals[b] if arrivals.dim() == 4 else arrivals
+        one_cur, one_arrived = delivery.delivery_kernel(
+            x[b].contiguous(), w_b.contiguous(), a_b.contiguous(),
+            blk.src_tiles, blk.dest_offsets, blk.max_blocks_per_dest)
+        check(same_bits(cur[b], one_cur) and torch.equal(arrived[b],
+                                                         one_arrived),
+              f"{name}: sample {b} differs from delivery_kernel")
+    return float((cur - ref_cur).abs().max())
+
+
+def sweep_phase(st, cuda, card, full_step50, single_full) -> dict:
+    """Phase 15: ParameterSweep on the card (module docstring).
+    ``full_step50`` is full's fired plane at step 50 (phase 8),
+    ``single_full`` phase 6's steps/s and busy share of one full chip.
+    Returns the batched kernel's entry of the kernels line."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from sanafe_tpu_torch.compile import compile_chip
+    from sanafe_tpu_torch.ops import delivery
+    from sanafe_tpu_torch.ops.delivery import pack_arrival_plane
+    from sanafe_tpu_torch.ops.step import build_block_delivery
+
+    # --- 15a. the main path: 16 thresholds of full, 200 steps ---
+    arch, net = random_chip(st, **FULL)
+    chip = st.SpikingChip(arch, device=cuda)
+    chip.load(net)
+    base = float(chip.compiled.threshold[0])
+    values = np.linspace(0.5, 4.0, PARAM_SAMPLES) * base
+    over = st.expand_group_values(chip.compiled, "threshold",
+                                  {"pop": values})
+    start = time.perf_counter()
+    sweep = st.ParameterSweep(chip, {"threshold": over})
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - start
+    prog = sweep.prog
+    check(prog.kernel_delivery and not prog.fused_rollup
+          and prog.dtype == torch.float32, "full sweep: program shape")
+    sweep.run(2)  # warm
+    torch.cuda.synchronize()
+
+    def refuse(*args, **kwargs):
+        raise CheckFailed("delivery_batch_plain ran on the card's sweep")
+
+    plain = delivery.delivery_batch_plain
+    delivery.delivery_batch_plain = refuse
+    try:
+        reset_counts()
+        start = time.perf_counter()
+        out = sweep.run(PARAM_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        counts = read_counts()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            start = time.perf_counter()
+            sweep.run(PARAM_PROFILE_STEPS)
+            torch.cuda.synchronize()
+            t_prof = time.perf_counter() - start
+    finally:
+        delivery.delivery_batch_plain = plain
+    check(counts["delivery_batch_kernel"] == PARAM_STEPS,
+          f"full sweep: {counts['delivery_batch_kernel']} batched-kernel "
+          f"launches in {PARAM_STEPS} steps")
+    check(counts["delivery_kernel"] == 0,
+          "full sweep: the single-sample delivery kernel ran")
+    fired = out["neurons_fired"]
+    check(fired.shape == (PARAM_SAMPLES,) and int(fired.min()) > 0
+          and len(set(fired.tolist())) > 1,
+          f"full sweep: samples' activity {fired.tolist()}")
+    check(all(bool(np.all(np.isfinite(v)) and np.all(v >= 0))
+              for v in out["energy"].values())
+          and bool(np.all(out["energy"]["total"] > 0))
+          and bool(np.all(np.isfinite(out["sim_time"])))
+          and bool(np.all(out["sim_time"] > 0)),
+          "full sweep: energies or sim_time not finite and positive")
+    device_us, top = device_busy(prof)
+    busy = device_us * 1e-6 / t_prof if device_us else "not measured"
+    rate = PARAM_SAMPLES * PARAM_STEPS / wall
+    print(f"param_sweep: full n={chip.compiled.n_neurons} float32, "
+          f"{PARAM_SAMPLES} thresholds {values.tolist()}, {PARAM_STEPS} "
+          f"steps simple: {rate} samples x steps/s ({PARAM_STEPS / wall} "
+          f"swept steps/s, {wall} s; sweep setup {setup_s} s); fired per "
+          f"sample {fired.tolist()}; launches {counts} | {card}", flush=True)
+    print(f"param_sweep_profile: full {PARAM_SAMPLES}-sample sweep, "
+          f"{PARAM_PROFILE_STEPS} steps under torch.profiler: host "
+          f"{t_prof / PARAM_PROFILE_STEPS * 1e3} ms a step, device "
+          f"{device_us / PARAM_PROFILE_STEPS * 1e-3} ms a step, busy share "
+          f"{busy}, {device_ops(prof) / PARAM_PROFILE_STEPS} device ops a "
+          f"step; top device ops (us, op, count) {top}; one full chip "
+          f"(phase 6): {single_full['steps_s']} steps/s, busy share "
+          f"{single_full['busy']} | {card}", flush=True)
+    del prof
+    for i in PARAM_CHECKED:
+        arch, net = random_chip(st, threshold=float(values[i]), **FULL)
+        one = st.SpikingChip(arch, device=cuda)
+        one.load(net)
+        ref = one.sim(PARAM_STEPS, timing_model="simple", heartbeat=0)
+        check_sample(out, i, ref, f"full sample {i}")
+        del one
+        torch.cuda.empty_cache()
+    print(f"param_sweep_vs_single: full samples {list(PARAM_CHECKED)} equal "
+          f"SpikingChip(device='cuda') runs of their thresholds over "
+          f"{PARAM_STEPS} steps (counters exact, energies and sim_time "
+          f"within {REL_TOL}) OK", flush=True)
+
+    # --- 15b. the 4096-neuron chip: dynamics-only and cost-column sweeps ---
+    arch, net = random_chip(st, **MID)
+    mid_chip = st.SpikingChip(arch, device=cuda)
+    mid_chip.load(net)
+    n_mid_chip = mid_chip.compiled.n_neurons
+    mid_values = np.asarray(PARAM_MID_SCALES) * base
+    dyn = st.ParameterSweep(mid_chip, {"threshold": st.expand_group_values(
+        mid_chip.compiled, "threshold", {"pop": mid_values})})
+    check(dyn.prog.fused_rollup, "mid threshold sweep: fusion turned off")
+    dyn_out = dyn.run(PARAM_STEPS)
+    for i, value in enumerate(mid_values):
+        arch, net = random_chip(st, threshold=float(value), **MID)
+        one = st.SpikingChip(arch, device=cuda)
+        one.load(net)
+        check_sample(dyn_out, i, one.sim(PARAM_STEPS, timing_model="simple",
+                                         heartbeat=0), f"mid threshold {i}")
+    cost = np.asarray(mid_chip.compiled.soma_energy_update, dtype=np.float64)
+    check(bool(np.any(cost > 0)), "mid: no soma update energy to sweep")
+    costs = cost[None, :] * np.asarray(PARAM_COST_SCALES)[:, None]
+    cost_sweep = st.ParameterSweep(mid_chip, {"soma_energy_update": costs})
+    check(not cost_sweep.prog.fused_rollup,
+          "mid cost sweep: fusion stayed on")
+    cost_out = cost_sweep.run(PARAM_STEPS)
+    for i in range(len(PARAM_COST_SCALES)):
+        arch, net = random_chip(st, **MID)
+        one = st.SpikingChip(arch, device=cuda)
+        one.load(net)
+        one.compiled.soma_energy_update = costs[i]
+        check_sample(cost_out, i, one.sim(PARAM_STEPS, timing_model="simple",
+                                          heartbeat=0), f"mid cost {i}")
+    soma = cost_out["energy"]["soma"]
+    check(bool(soma[0] < soma[1] < soma[2]), f"mid cost sweep: soma {soma}")
+    print(f"param_sweep_mid: n={n_mid_chip} float32 {PARAM_STEPS} steps: "
+          f"thresholds "
+          f"{mid_values.tolist()} (fused roll-up) fired "
+          f"{dyn_out['neurons_fired'].tolist()}; soma_energy_update x "
+          f"{list(PARAM_COST_SCALES)} (fusion off) soma energy "
+          f"{soma.tolist()}; every sample equals a SpikingChip(device="
+          f"'cuda') run OK", flush=True)
+    del dyn, cost_sweep, mid_chip, one
+    torch.cuda.empty_cache()
+
+    # --- 15c. the batched kernel against its plain version ---
+    blk = prog.block
+    n_full = chip.compiled.n_neurons
+    max_err = 0.0
+    for samples in BATCH_CHECKS:
+        x = batch_planes(blk, n_full, samples, torch.float32, cuda)
+        max_err = max(max_err, hold_batch(x, blk.weights, blk.arrivals, blk,
+                                          f"full B={samples}"))
+    mid_compiled = compile_chip(*random_chip(st, **MID))
+    mblk = build_block_delivery(mid_compiled, torch.float64, cuda)
+    mplane = pack_arrival_plane(mblk.counts)
+    n_mid = mid_compiled.n_neurons
+    for samples in BATCH_CHECKS:
+        x = batch_planes(mblk, n_mid, samples, torch.float64, cuda)
+        max_err = max(max_err, hold_batch(x, mblk.weights, mplane, mblk,
+                                          f"mid float64 B={samples}"))
+    # per-sample weights (scaled) and arrival planes (every (b + 2)-th row
+    # of each block keeps its edges)
+    samples = 3
+    x = batch_planes(mblk, n_mid, samples, torch.float64, cuda)
+    scale = torch.arange(1, samples + 1, dtype=torch.float64, device=cuda)
+    weights = (mblk.weights[None] * scale[:, None, None, None]).contiguous()
+    rows = torch.arange(mblk.tile, device=cuda)
+    arrivals = torch.stack([
+        pack_arrival_plane(mblk.counts * (rows % (b + 2) == 0)[
+            None, :, None].to(torch.int8)) for b in range(samples)])
+    max_err = max(max_err, hold_batch(x, weights, arrivals, mblk,
+                                      "mid float64 per-sample weights"))
+    print(f"delivery_batch_vs_plain: full float32 and mid float64 at "
+          f"{list(BATCH_CHECKS)} samples (patterns {list(PATTERNS)} in "
+          f"turn), mid with per-sample weights and arrival planes: equal "
+          f"to delivery_batch_plain and to delivery_kernel sample by sample "
+          f"bit for bit, max_abs_err={max_err} OK", flush=True)
+    del mblk, mplane, weights, arrivals, x
+    torch.cuda.empty_cache()
+
+    # --- 15d. timing on full's step-50 pattern ---
+    one_x = torch.from_numpy(full_step50).to(
+        device=cuda, dtype=torch.float32).view(blk.n_tiles, blk.tile)
+    args = (blk.weights, blk.arrivals, blk.src_tiles, blk.dest_offsets,
+            blk.max_blocks_per_dest)
+    times = {}
+    for samples in BATCH_TIMINGS:
+        xb = one_x.expand(samples, -1, -1).contiguous()
+        times[samples] = cuda_ms(
+            lambda: delivery.delivery_batch_kernel(xb, *args), 20)
+    x16 = one_x.expand(PARAM_SAMPLES, -1, -1).contiguous()
+
+    def sixteen():
+        for _ in range(PARAM_SAMPLES):
+            delivery.delivery_kernel(one_x, *args)
+
+    single_ms = cuda_ms(sixteen, 5)
+    plain_ms = cuda_ms(lambda: delivery.delivery_batch_plain(x16, *args), 2)
+    # bytes: the union's fired rows of every active block (a float32 and
+    # an arrival bit a cell), the fired planes read and the results
+    # written; adds: one a cell a sample of each sample's fired rows
+    rows = int(one_x.sum(dim=1)[blk.src_tiles.long()].sum())
+    words = blk.arrivals.shape[2]
+    n_pad = blk.n_pad
+    read_b = rows * (blk.tile * 4 + words * 4)
+    fixed_b = (PARAM_SAMPLES * n_pad * (4 + 4 + 1)
+               + blk.src_tiles.numel() * 4 + blk.dest_offsets.numel() * 4)
+    bound_ms, bound_by = bound(read_b + fixed_b,
+                               PARAM_SAMPLES * rows * blk.tile, F32_ADDS_S)
+    dense = torch.zeros((n_pad, n_pad), dtype=torch.float32, device=cuda)
+    dense.view(blk.n_tiles, blk.tile, blk.n_tiles, blk.tile).permute(
+        0, 2, 1, 3).index_put_(
+        (blk.src_tiles.long(), blk.dest_tiles.long()), blk.weights,
+        accumulate=True)
+    lhs = x16.reshape(PARAM_SAMPLES, -1)
+    library_ms = cuda_ms(lambda: torch.mm(lhs, dense), 10)
+    cur, _ = delivery.delivery_batch_kernel(x16, *args)
+    library_err = float((torch.mm(lhs, dense).reshape(cur.shape) - cur)
+                        .abs().max())
+    check(library_err == 0.0, "delivery batch: torch.mm currents differ "
+          f"from the kernel's by {library_err} (integer weights)")
+    print(f"delivery_batch_timing: full step-50 pattern "
+          f"({int(one_x.sum())} of {n_full} fired, {rows} fired block "
+          f"rows) in every sample: delivery_batch_kernel ms at "
+          f"{ {b: times[b] for b in BATCH_TIMINGS} } samples; "
+          f"{PARAM_SAMPLES} delivery_kernel launches {single_ms} ms; "
+          f"delivery_batch_plain at {PARAM_SAMPLES} samples on CUDA tensors "
+          f"{plain_ms} ms; torch.mm of the {PARAM_SAMPLES} fired rows "
+          f"against the dense {n_pad}x{n_pad} float32 weights "
+          f"{library_ms} ms (currents equal); bound at {PARAM_SAMPLES} "
+          f"samples {bound_ms} ms ({bound_by}; {read_b + fixed_b} B, "
+          f"{PARAM_SAMPLES * rows * blk.tile} adds; "
+          f"{bound_ms / times[PARAM_SAMPLES]} of it reached) | {card}",
+          flush=True)
+    del dense, lhs, cur, x16, sweep, prog, blk, chip
+    torch.cuda.empty_cache()
+    return {"launches": counts["delivery_batch_kernel"],
+            "max_abs_err": max_err, "ms": times[PARAM_SAMPLES],
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
+
+
 def main() -> int:
     import torch
 
@@ -1900,6 +2223,7 @@ def run(tmp: Path) -> int:
           f"({t_det} s, {spike_rows} spike rows, walls s {det_walls}) "
           f"sim_time={det['sim_time']}; engine scan, launches {scan_counts} "
           f"| {card}")
+    single_full = {"steps_s": SCAN_SIMPLE_STEPS / t_simple, "busy": busy}
     print(f"scan_profile: full simple {SCAN_PROFILE_STEPS} steps under "
           f"torch.profiler: wall {t_prof} s, device time {device_us * 1e-6} "
           f"s, busy share {busy}; top device ops (us, op, count) {top} | "
@@ -2071,6 +2395,7 @@ def run(tmp: Path) -> int:
           f"({delivery_bound_by}; {delivery_bound / delivery_ms} of it "
           f"reached); the earlier kernel's bytes (a count byte a cell, "
           f"{rows * blk.tile * 5} B) bound {earlier_bound} ms | {card}")
+    full_step50 = fired.copy()
     del dense, row, cur, arrived, ref_cur, ref_cnt, args, plain_args, x
     del blk, plane, outs
     torch.cuda.empty_cache()
@@ -2081,6 +2406,7 @@ def run(tmp: Path) -> int:
     del full_compiled, mid_compiled
     hh_phase(st, cuda, card)
     prefix = fixtures_phase(st, cuda, card, tmp)
+    batch = sweep_phase(st, cuda, card, full_step50, single_full)
 
     print(json.dumps({"kernels": [
         {
@@ -2147,6 +2473,19 @@ def run(tmp: Path) -> int:
             "bound_ms": prefix["bound_ms"],
             "bound_by": prefix["bound_by"],
             "library_ms": prefix["library_ms"],
+        },
+        {
+            "name": "delivery_batch_kernel",
+            "route": "cuda",
+            "source": "sanafe_tpu_torch/csrc/delivery_batch_kernel.cu",
+            "replaces": "sanafe_tpu/ops/pallas_delivery.py:41",
+            "launches": batch["launches"],
+            "max_abs_err": batch["max_abs_err"],
+            "ms": batch["ms"],
+            "plain_ms": batch["plain_ms"],
+            "bound_ms": batch["bound_ms"],
+            "bound_by": batch["bound_by"],
+            "library_ms": batch["library_ms"],
         },
     ]}))
     print(card)

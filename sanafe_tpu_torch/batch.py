@@ -1,0 +1,252 @@
+"""Batched design-space exploration: B parameterizations of one chip at once.
+
+Counterpart of ``sanafe_tpu/batch.py``. SANA-FE exists for neuromorphic
+architecture design-space exploration (the TCAD'25 paper sweeps hardware
+energy/latency costs and model parameters across runs). The reference
+evaluates one parameterization per process; here a leading sample axis
+runs B parameter samples of the SAME mapped chip through one step
+(``ops/step.py:_timestep``, written to take the axis, where sanafe_tpu
+``jax.vmap``s it), so
+
+- connectivity (block weights, conv filters) stays shared and is read from
+  device memory once per step for ALL samples: block delivery goes through
+  ``delivery_batch_kernel`` (``csrc/delivery_batch_kernel.cu``) on CUDA,
+  which reads each fired weight row once and adds it into every sample
+  that fired it, and
+- every overridden per-neuron parameter or cost column carries a
+  ``[B, ...]`` axis through the same step the single-chip simulator runs,
+  so batched counters are exactly those of B sequential ``sim()`` calls
+  (float sums may differ in the last ulp).
+
+Restrictions, as in sanafe_tpu: the simple timing model only, and no
+host-fed stochastic models (TrueNorth LFSR noise, Poisson inputs). Plugin
+soma chips and ``mesh`` are not ported yet.
+
+Overrides use sanafe_tpu's array names and layouts, so one override dict
+drives both packages: a ``conv_kernel_i`` override is the HWIO filter
+with the all-ones count channel last, permuted to the port's OIHW here
+(``ops/conv.py:hwio_to_oihw``); a ``block_counts`` override is repacked into
+per-sample arrival planes where the program delivers through the kernel.
+
+Example::
+
+    chip = st.SpikingChip(arch); chip.load(net)
+    sweep = ParameterSweep(chip, {
+        "threshold": thresholds,          # [B, n_neurons]
+        "leak_decay": decays,             # [B, n_neurons]
+    })
+    out = sweep.run(1000)
+    best = int(np.argmin(out["energy"]["total"]))
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .chip import _not_ported
+from .ops.conv import full_float32_matmul, hwio_to_oihw
+from .ops.dag_chunk import rollup_stats
+from .ops.delivery import pack_arrival_plane
+from .ops.step import _timestep, initial_state, make_device_program
+
+__all__ = ["ParameterSweep", "expand_group_values"]
+
+# Pure state-dynamics parameters stay runtime inputs of the fused roll-up
+# program; any other override (a cost column, the edge weights) turns
+# fusion off, as in sanafe_tpu/batch.py:118-128
+DYNAMICS_ONLY = frozenset({
+    "threshold", "reverse_threshold", "reset", "reverse_reset",
+    "leak_decay", "input_decay", "bias", "leak",
+    "leak_towards_zero", "refractory_delay", "force_update",
+})
+
+
+def expand_group_values(
+    compiled, name: str, group_values: dict, base: Optional[np.ndarray] = None
+) -> np.ndarray:
+    """Build a ``[B, n_neurons]`` override for per-neuron column ``name``.
+
+    ``group_values`` maps group name -> ``[B]`` (one value per sample,
+    broadcast over the group) or ``[B, group_size]`` arrays. Neurons of
+    unlisted groups keep the compiled value (or ``base`` if given).
+    """
+    ref = base if base is not None else getattr(compiled, name)
+    ref = np.asarray(ref, dtype=np.float64)
+    B = None
+    for values in group_values.values():
+        b = np.asarray(values).shape[0]
+        if B is None:
+            B = b
+        elif B != b:
+            raise ValueError("inconsistent sample counts across groups")
+    if B is None:
+        raise ValueError("group_values is empty")
+    out = np.broadcast_to(ref, (B,) + ref.shape).copy()
+    for group, values in group_values.items():
+        slots = np.asarray(compiled.groups[group])
+        values = np.asarray(values, dtype=np.float64)
+        if values.ndim == 1:
+            out[:, slots] = values[:, None]
+        else:
+            if values.shape[1] != len(slots):
+                raise ValueError(
+                    f"override for group {group!r} has {values.shape[1]} "
+                    f"columns, group has {len(slots)} neurons"
+                )
+            out[:, slots] = values
+    return out
+
+
+class ParameterSweep:
+    """Simulate B parameter samples of one mapped chip simultaneously, on
+    the chip's device.
+
+    ``overrides`` maps device-array names (the per-neuron parameter and
+    cost columns of ``ops/step.py:make_device_program``, e.g.
+    ``threshold``, ``leak_decay``, ``bias``, ``soma_energy_update``, the
+    block ``block_weights`` / ``block_counts``, or a conv filter
+    ``conv_kernel_0``) to arrays of shape ``[B, *original.shape]`` in
+    sanafe_tpu's layout.
+
+    Note ``conv_kernel_i`` is the HWIO filter with an appended all-ones
+    output channel (the destination arrival counter driving buffer_valid);
+    when sweeping filter weights, scale ``kernel[..., :-1]`` and leave the
+    last output channel at 1.
+    """
+
+    def __init__(self, chip, overrides: dict, dtype=None, mesh=None,
+                 mesh_axis: str = None):
+        """``dtype`` defaults to the chip's. ``mesh`` (sanafe_tpu shards
+        the sample axis over a device mesh) is not ported yet."""
+        if mesh is not None:
+            raise _not_ported("ParameterSweep(mesh=...)",
+                              "ROADMAP.md section 1, 'Scale-out'")
+        del mesh_axis
+        c = chip.compiled
+        if c is None:
+            raise RuntimeError("No network loaded; call load() first")
+        if c.has_poisson or (
+            c.tn_noise_slots is not None and len(c.tn_noise_slots)
+        ):
+            raise ValueError(
+                "ParameterSweep does not support host-fed stochastic models "
+                "(Poisson inputs / TrueNorth LFSR noise); their RNG stream "
+                "draw order is defined per-chip. Sweep deterministic "
+                "configurations, then sim() the winner."
+            )
+        if c.plugin_specs:
+            raise _not_ported("ParameterSweep of a plugin soma chip",
+                              "ROADMAP.md section 1, 'Plugin sweeps'")
+        self.compiled = c
+        self.device = chip.device
+        # The fused roll-up / dense-delivery matvec bakes every cost column
+        # and the edge weights into its coefficient matrix at build time;
+        # overriding one of those arrays per sample would silently no-op.
+        # Pure state-dynamics parameters stay runtime inputs, so fusion is
+        # only disabled when a baked array is swept.
+        fuse = all(name in DYNAMICS_ONLY for name in overrides)
+        self.prog = make_device_program(
+            c, chip.device, chip.dtype if dtype is None else dtype,
+            fuse=fuse)
+        prog = self.prog
+        if not overrides:
+            raise ValueError("no overrides given; use SpikingChip.sim()")
+        known = dict(prog.arrays)
+        if prog.kernel_delivery:
+            # sanafe_tpu's name for the edge counts the kernel reads packed
+            known["block_counts"] = None
+        B = None
+        self.arrays = dict(prog.arrays)
+        for name, values in overrides.items():
+            if name not in known:
+                names = ", ".join(sorted(known))
+                raise KeyError(
+                    f"unknown device array {name!r}; valid names: {names}"
+                )
+            values = np.asarray(values)
+            if not values.flags.writeable:  # e.g. np.broadcast_to's view
+                values = values.copy()
+            values = torch.as_tensor(values)
+            if name == "block_counts":
+                orig_shape = tuple(prog.block.weights.shape)
+                dtype_of = torch.int8
+            else:
+                orig = prog.arrays[name]
+                orig_shape, dtype_of = tuple(orig.shape), orig.dtype
+            if name.startswith("conv_kernel_") and values.dim() >= 4:
+                values = hwio_to_oihw(values)
+            if values.dim() < 1 or tuple(values.shape[1:]) != orig_shape:
+                raise ValueError(
+                    f"override {name!r} must have shape [B, "
+                    f"{', '.join(map(str, orig_shape))}] in sanafe_tpu's "
+                    f"layout; got {tuple(np.shape(overrides[name]))}"
+                )
+            if B is None:
+                B = values.shape[0]
+            elif values.shape[0] != B:
+                raise ValueError("inconsistent sample counts across overrides")
+            values = values.to(device=self.device, dtype=dtype_of)
+            if name == "block_counts" and prog.kernel_delivery:
+                self.arrays["block_arrivals"] = torch.stack(
+                    [pack_arrival_plane(v) for v in values])
+            else:
+                self.arrays[name] = values
+        self.batch = B
+
+    def run(self, timesteps: int, chunk: int = 4096) -> dict:
+        """Run ``timesteps`` steps for every sample; returns ``[B]``-shaped
+        aggregates mirroring ``SpikingChip.sim()``'s result keys.
+
+        One Python loop a chunk, as ``ops/scan.py:run_scan``: the stats are
+        summed on the device and copied to the host once a chunk."""
+        B = self.batch
+        prog = self.prog
+        a = self.arrays
+        dev = self.device
+        defer = prog.fused_rollup and not prog.dense_delivery
+        state = initial_state(self.compiled, prog.dtype, dev, batch=B)
+        counters = np.zeros((B, 5), dtype=np.int64)
+        energies = np.zeros((B, 6), dtype=np.float64)
+        t = 1
+        remaining = timesteps
+        with full_float32_matmul():
+            while remaining > 0:
+                length = min(chunk, remaining)
+                steps: dict[str, list] = {}
+                for j in range(length):
+                    state, out = _timestep(prog, a, state, t + j,
+                                           defer_rollup=defer)
+                    for key in ("stats", "fired_plane", "upd_plane"):
+                        if key in out:
+                            steps.setdefault(key, []).append(out[key])
+                if defer:
+                    stats, _ = rollup_stats(
+                        prog, a, torch.stack(steps["fired_plane"]).to(
+                            prog.dtype),
+                        torch.stack(steps["upd_plane"]).to(prog.dtype))
+                else:
+                    stats = torch.stack(steps["stats"])  # [T, B, 11]
+                stats = stats.to(torch.float64)
+                counters += torch.round(stats[:, :, :5]).to(
+                    torch.int64).sum(dim=0).cpu().numpy()
+                energies += stats[:, :, 5:11].sum(dim=0).cpu().numpy()
+                t += length
+                remaining -= length
+        return {
+            "timesteps_executed": timesteps,
+            "spikes": counters[:, 0],
+            "packets_sent": counters[:, 1],
+            "neurons_updated": counters[:, 3],
+            "neurons_fired": counters[:, 4],
+            "energy": {
+                "synapse": energies[:, 0],
+                "dendrite": energies[:, 1],
+                "soma": energies[:, 2],
+                "network": energies[:, 3],
+                "total": energies[:, 4],
+            },
+            "sim_time": energies[:, 5],
+        }

@@ -105,15 +105,21 @@ def build_conv_delivery(c: CompiledChip) -> Optional[ConvDelivery]:
                         out_mask=out_mask)
 
 
+def hwio_to_oihw(kernel: torch.Tensor) -> torch.Tensor:
+    """sanafe_tpu's conv filter layout, HWIO ``[..., kh, kw, cin, cout+1]``
+    (count channel last), as the port holds it: OIHW ``[..., cout+1, cin,
+    kh, kw]``, contiguous. Leading axes (a sweep's samples) stay."""
+    return kernel.movedim((-1, -2), (-4, -3)).contiguous()
+
+
 def conv_arrays(cd: ConvDelivery, dtype: torch.dtype, device) -> dict:
     """The program arrays of the plan: ``conv_kernel_{i}`` (OIHW, the HWIO
-    filter permuted), ``conv_src_idx_{i}``, ``conv_out_gidx`` and
-    ``conv_out_mask``, under sanafe_tpu's names."""
+    filter permuted by ``hwio_to_oihw``), ``conv_src_idx_{i}``,
+    ``conv_out_gidx`` and ``conv_out_mask``, under sanafe_tpu's names."""
     arrays = {}
     for i, entry in enumerate(cd.entries):
-        hwio = torch.from_numpy(entry[2])
-        arrays[f"conv_kernel_{i}"] = hwio.permute(3, 2, 0, 1).contiguous().to(
-            device=device, dtype=dtype)
+        arrays[f"conv_kernel_{i}"] = hwio_to_oihw(
+            torch.from_numpy(entry[2])).to(device=device, dtype=dtype)
         arrays[f"conv_src_idx_{i}"] = torch.from_numpy(
             cd.in_index[entry[0]]).to(device)
     arrays["conv_out_gidx"] = torch.from_numpy(cd.out_gidx).to(device)
@@ -138,7 +144,9 @@ def conv_entry(a: dict, i: int, entry: tuple, x: torch.Tensor):
     """Entry ``i`` of the plan over a batch of source planes: ``x``
     ``[B, cin*h*w]`` (the source group's fired vectors in neuron-offset
     order). Returns (currents, arrival counts), each ``[B, cout*oh*ow]`` in
-    the destination group's neuron order."""
+    the destination group's neuron order. A filter with a leading ``[B]``
+    axis (a sweep's per-sample filters) convolves row b with filter b: a
+    batched product."""
     _, _, kernel, (s_h, s_w), (cin, h, w), (cout, oh, ow) = entry
     k_h, k_w = kernel.shape[:2]
     rows = x.shape[0]
@@ -151,7 +159,7 @@ def conv_entry(a: dict, i: int, entry: tuple, x: torch.Tensor):
     cols = patches.permute(0, 1, 4, 5, 2, 3).reshape(
         rows, cin * k_h * k_w, oh * ow)
     with full_float32_matmul():
-        y = torch.matmul(weights.reshape(weights.shape[0], -1), cols)
+        y = torch.matmul(weights.flatten(-3), cols)
     cur = y[:, :cout].reshape(rows, -1)
     cnt = y[:, cout:cout + 1].expand(rows, cout, oh * ow).reshape(rows, -1)
     return cur, cnt
@@ -176,16 +184,21 @@ def conv_results(cd: ConvDelivery, a: dict, entries, planes):
 
 def conv_deliver(prog, a: dict, fired_f: torch.Tensor):
     """One step of conv delivery (sanafe_tpu's ``_conv_deliver``): returns
-    (buffer_current [n], any_input [n] bool) of the conv-made edges only."""
+    (buffer_current [n], any_input [n] bool) of the conv-made edges only,
+    or ``[B, n]`` each for a ``[B, n]`` batch of fired vectors (one row of
+    the convolutions' batch a sample)."""
     cd = prog.conv_delivery
+    lead = fired_f.shape[:-1]
+    rows = fired_f.reshape(-1, fired_f.shape[-1])
     results = conv_results(
         cd, a, range(len(cd.entries)),
-        lambda i: fired_f[a[f"conv_src_idx_{i}"]][None])
-    g_cur = torch.cat([results[g][0][0] for g in cd.dest_order])
-    g_cnt = torch.cat([results[g][1][0] for g in cd.dest_order])
+        lambda i: rows[:, a[f"conv_src_idx_{i}"]])
+    g_cur = torch.cat([results[g][0] for g in cd.dest_order], dim=1)
+    g_cnt = torch.cat([results[g][1] for g in cd.dest_order], dim=1)
     mask = a["conv_out_mask"]
     gidx = a["conv_out_gidx"]
     zero = torch.zeros((), dtype=fired_f.dtype, device=fired_f.device)
-    buffer_current = torch.where(mask, g_cur[gidx], zero)
-    any_input = mask & (g_cnt[gidx] > 0)
-    return buffer_current, any_input
+    buffer_current = torch.where(mask, g_cur[:, gidx], zero)
+    any_input = mask & (g_cnt[:, gidx] > 0)
+    return (buffer_current.reshape(lead + (-1,)),
+            any_input.reshape(lead + (-1,)))

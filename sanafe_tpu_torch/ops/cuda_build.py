@@ -59,10 +59,11 @@ class KernelLibrary:
 
 CHUNK = KernelLibrary("chunk")
 DELIVERY = KernelLibrary("delivery")
+DELIVERY_BATCH = KernelLibrary("delivery_batch")
 MERGE = KernelLibrary("merge")
 LEVEL = KernelLibrary("level")
 PREFIX = KernelLibrary("prefix")
-ALL = (CHUNK, DELIVERY, MERGE, LEVEL, PREFIX)
+ALL = (CHUNK, DELIVERY, DELIVERY_BATCH, MERGE, LEVEL, PREFIX)
 
 
 def _nvcc() -> str:

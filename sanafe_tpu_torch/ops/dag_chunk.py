@@ -213,9 +213,10 @@ def rollup_stats(prog: DeviceProgram, a, fired_f, upd_f):
     ``[T, 2N] @ [2N, K]`` product gives every per-step counter, energy and
     per-core latency sum (column layout: ``build_rollup_matrix``), then the
     simple-timing step time as the max over the per-core latency sums
-    (src/schedule.cpp:61-102). Shared by the DAG engine and the step scan.
-    Returns ``(stats [T, 11], opt_perf or None)``."""
-    lhs = torch.cat([fired_f, upd_f], dim=1)
+    (src/schedule.cpp:61-102). Shared by the DAG engine, the step scan and
+    ``ParameterSweep``, whose ``[T, B, N]`` planes give ``[T, B, ...]``
+    results. Returns ``(stats [T, 11], opt_perf or None)``."""
+    lhs = torch.cat([fired_f, upd_f], dim=-1)
     # the product in float64, rounded once: a float32 GEMM's accumulation
     # order follows the kernel cuBLAS picks for the shape, so the chunk
     # length moved the energies (on an H100, a 4096-neuron chip's soma
@@ -227,15 +228,15 @@ def rollup_stats(prog: DeviceProgram, a, fired_f, upd_f):
     n_cores = prog.compiled.n_cores
     lat0, msg0 = 9, 9 + n_cores
     opt0 = msg0 + n_cores
-    total_energy = r[:, 5] + r[:, 6] + r[:, 7] + r[:, 8]
+    total_energy = r[..., 5] + r[..., 6] + r[..., 7] + r[..., 8]
     sim_time = torch.maximum(
-        r[:, lat0:msg0].max(dim=1).values,
-        r[:, msg0:opt0].max(dim=1).values,
+        r[..., lat0:msg0].max(dim=-1).values,
+        r[..., msg0:opt0].max(dim=-1).values,
     ) + prog.sync_t
     stats = torch.cat(
-        [r[:, :9], total_energy[:, None], sim_time[:, None]], dim=1
+        [r[..., :9], total_energy[..., None], sim_time[..., None]], dim=-1
     )
-    opt_perf = r[:, opt0:] if "perf_col_fired" in a else None
+    opt_perf = r[..., opt0:] if "perf_col_fired" in a else None
     return stats, opt_perf
 
 

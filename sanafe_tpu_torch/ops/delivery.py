@@ -17,6 +17,12 @@ plane ``pack_arrival_plane(counts)`` (``counts > 0``, 32 columns a word) and
 ORs it over the fired rows. It first compacts each source tile's fired rows
 into an ascending list, once a step (``fired_rows_plain`` is that phase's
 plain version). On CPU tensors the wrapper takes the plain versions.
+
+``delivery_batch_kernel`` (``csrc/delivery_batch_kernel.cu``) is the same
+delivery for B fired vectors at once, the sample axis of ``ParameterSweep``
+(sanafe_tpu's ``jax.vmap`` of the Pallas kernel): each weight row fired in
+any sample is read once and added into every sample that fired it. Its
+plain version is ``delivery_batch_plain``.
 """
 
 from __future__ import annotations
@@ -25,7 +31,7 @@ import functools
 
 import torch
 
-from .cuda_build import DELIVERY, load
+from .cuda_build import DELIVERY, DELIVERY_BATCH, load
 
 # a tile is at most this many neurons (the kernel's fired-row lists hold row
 # indices as bytes), and a multiple of 4 (rows are read 16 bytes at a time)
@@ -54,6 +60,18 @@ def sorted_segment_sum(values: torch.Tensor, dest_offsets: torch.Tensor,
         take = (idx < end).view((n_seg,) + (1,) * (values.dim() - 1))
         acc = acc + torch.where(take, values[torch.clamp(idx, max=last)], 0)
     return acc
+
+
+def block_rows_sum(xs, weights, dest_offsets, max_blocks_per_dest: int):
+    """For each row r of ``xs`` [R, n_blocks, tile] (row r's source-tile
+    slice of every block), the sum over each destination tile's blocks of
+    ``xs[r, b] @ weights[b]``, or ``@ weights[r, b]`` for weights with a
+    leading ``[R]`` axis: all rows in one product, each destination adding
+    its blocks in ascending order (``sorted_segment_sum``). Returns
+    ``[n_tiles, R, cols]``."""
+    spec = "rbi,bij->brj" if weights.dim() == 3 else "rbi,rbij->brj"
+    return sorted_segment_sum(torch.einsum(spec, xs, weights), dest_offsets,
+                              max_blocks_per_dest)
 
 
 def delivery_plain(fired_tiles, weights, counts, src_tiles, dest_offsets,
@@ -219,3 +237,149 @@ def delivery_kernel(fired_tiles, weights, arrivals, src_tiles, dest_offsets,
 
 
 delivery_kernel.launches = 0
+
+
+def delivery_batch_plain(fired_tiles, weights, arrivals, src_tiles,
+                         dest_offsets, max_blocks_per_dest: int):
+    """Plain version of ``delivery_batch_kernel``: the einsum and sorted
+    segment sum of ``ops/step.py:_block_deliver_rows`` over the samples,
+    and the arrival plane ORed over each sample's fired rows (an einsum of
+    the unpacked plane, ``> 0``).
+
+    ``fired_tiles`` [B, n_tiles, tile] 0/1 in the program dtype;
+    ``weights`` [n_blocks, tile, tile] or, one set a sample,
+    [B, n_blocks, tile, tile]; ``arrivals`` [n_blocks, tile, words] int32 or
+    [B, n_blocks, tile, words]; ``src_tiles`` and ``dest_offsets`` as for
+    ``delivery_kernel``. Returns (currents [B, n_tiles, tile], arrived
+    [B, n_tiles, tile] bool)."""
+    tile = fired_tiles.shape[2]
+    xs = fired_tiles[:, src_tiles.long()]  # [B, n_blocks, tile]
+    counts = unpack_arrival_plane(
+        arrivals.reshape((-1,) + tuple(arrivals.shape[-2:])), tile).view(
+        tuple(arrivals.shape[:-1]) + (tile,)).to(torch.float32)
+    cur = block_rows_sum(xs, weights, dest_offsets, max_blocks_per_dest)
+    cnt = block_rows_sum(xs.to(torch.float32), counts, dest_offsets,
+                         max_blocks_per_dest)
+    return cur.transpose(0, 1).contiguous(), cnt.transpose(0, 1) > 0
+
+
+@functools.cache
+def _batch_library():
+    import ctypes
+
+    lib = load(DELIVERY_BATCH)
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.sanafe_delivery_batch_launch.restype = i32
+    lib.sanafe_delivery_batch_launch.argtypes = (
+        [vp] * 10 + [i64] * 2 + [i32] * 6 + [vp])
+    lib.sanafe_delivery_batch_smem.restype = ctypes.c_longlong
+    lib.sanafe_delivery_batch_smem.argtypes = [i32] * 6
+    lib.sanafe_delivery_batch_error_string.restype = ctypes.c_char_p
+    lib.sanafe_delivery_batch_error_string.argtypes = [i32]
+    return lib
+
+
+def delivery_batch_kernel(fired_tiles, weights, arrivals, src_tiles,
+                          dest_offsets, max_blocks_per_dest: int):
+    """B deliveries at once: the CUDA kernels (compaction over the samples,
+    then the sums) for CUDA tensors, ``delivery_batch_plain`` for CPU
+    tensors. Arguments and results as ``delivery_batch_plain``'s.
+
+    Shared ``weights`` and ``arrivals`` are read once a step for all
+    samples: a weight row fired in any sample is read once and added into
+    the accumulators of the samples that fired it. A leading ``[B]`` axis on
+    either (a sweep that overrides ``block_weights`` or ``block_counts``)
+    makes the kernel read each sample's own, its fired rows only. Each
+    sample adds its fired rows in ascending order within a block and its
+    blocks in ascending order, from +0.0, skipping rows it did not fire: a
+    fixed order, equal bit for bit to ``delivery_kernel`` and to
+    ``delivery_batch_plain`` wherever the partial sums are exact (integer
+    weights), and to rounding otherwise. Float32 and float64; launches on
+    the current stream and does not synchronise.
+    ``delivery_batch_kernel.launches`` counts its launches."""
+    dev = fired_tiles.device
+    if dev.type == "cpu":
+        return delivery_batch_plain(fired_tiles, weights, arrivals,
+                                    src_tiles, dest_offsets,
+                                    max_blocks_per_dest)
+    if dev.type != "cuda":
+        raise ValueError(f"delivery_batch_kernel: unsupported device {dev}")
+    dtype = fired_tiles.dtype
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"delivery_batch_kernel: unsupported dtype {dtype}")
+    if fired_tiles.dim() != 3 or fired_tiles.shape[0] == 0:
+        raise ValueError("delivery_batch_kernel: fired_tiles must be "
+                         "[B, n_tiles, tile] with B > 0")
+    batch, n_tiles, tile = fired_tiles.shape
+    n_blocks = weights.shape[-3]
+    if not 8 <= tile <= MAX_TILE or tile & (tile - 1):
+        raise ValueError(f"delivery_batch_kernel: tile {tile} is not a "
+                         f"power of two in [8, {MAX_TILE}]")
+    if n_blocks * tile >= 2**31:
+        raise ValueError("delivery_batch_kernel: the kernel indexes weight "
+                         "rows with int32; 2**31 or more rows")
+    words = -(-tile // 32)
+    w_shape = (n_blocks, tile, tile)
+    a_shape = (n_blocks, tile, words)
+    if weights.dim() == 4:
+        w_shape = (batch,) + w_shape
+    if arrivals.dim() == 4:
+        a_shape = (batch,) + a_shape
+    expect = (
+        ("fired_tiles", fired_tiles, (batch, n_tiles, tile), dtype),
+        ("weights", weights, w_shape, dtype),
+        ("arrivals", arrivals, a_shape, torch.int32),
+        ("src_tiles", src_tiles, (n_blocks,), torch.int32),
+        ("dest_offsets", dest_offsets, (n_tiles + 1,), torch.int32),
+    )
+    pointers = []
+    for name, x, shape, dt in expect:
+        ptr = x.data_ptr()
+        if (x.device != dev or x.shape != shape or x.dtype != dt
+                or not x.is_contiguous() or ptr % 16):
+            raise ValueError(
+                f"delivery_batch_kernel: {name} must be a contiguous, "
+                f"16-byte aligned {dt} tensor of shape {shape} on {dev}; got "
+                f"{x.dtype} {tuple(x.shape)} on {x.device}")
+        pointers.append(ptr)
+    w_stride = n_blocks * tile * tile if weights.dim() == 4 else 0
+    a_stride = n_blocks * tile * words if arrivals.dim() == 4 else 0
+    lib = _batch_library()
+    is_double = int(dtype == torch.float64)
+    blk_cap = int(max_blocks_per_dest)
+    per_sample = int(bool(w_stride or a_stride))
+    if lib.sanafe_delivery_batch_smem(batch, n_tiles, tile, blk_cap,
+                                      is_double, per_sample) < 0:
+        raise ValueError(
+            f"delivery_batch_kernel: {n_tiles} tiles of {tile} with up to "
+            f"{blk_cap} blocks a tile need more than a CTA's 227 KB of "
+            "shared memory")
+    out_cur = torch.empty((batch, n_tiles, tile), dtype=dtype, device=dev)
+    # one allocation, 16-byte aligned parts: the arrived planes, then the
+    # kernel's scratch: each source tile's list of the rows any sample
+    # fired (a byte a row), the lists' int32 lengths, and each row's
+    # sample mask (ceil(B/32) int32 words a row)
+    n = n_tiles * tile
+    mask_words = -(-batch // 32)
+    parts = [batch * n, n, 4 * n_tiles, 4 * n * mask_words]
+    offsets = [0]
+    for size in parts:
+        offsets.append(offsets[-1] + -(-size // 16) * 16)
+    scratch = torch.empty(offsets[-1], dtype=torch.uint8, device=dev)
+    base = scratch.data_ptr()
+    err = lib.sanafe_delivery_batch_launch(
+        *pointers, base + offsets[1], base + offsets[2], base + offsets[3],
+        out_cur.data_ptr(), base, w_stride, a_stride, batch, n_tiles, tile,
+        blk_cap, is_double, dev.index or 0,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(
+            "delivery batch kernel launch failed: "
+            + lib.sanafe_delivery_batch_error_string(err).decode())
+    delivery_batch_kernel.launches += 1
+    arrived = scratch[: batch * n].view(torch.bool).view(batch, n_tiles, tile)
+    return out_cur, arrived
+
+
+delivery_batch_kernel.launches = 0

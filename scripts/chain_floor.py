@@ -10,10 +10,12 @@ prefix and level kernels of another checkout.
 - ``other_library(root, name)``: ``<root>/sanafe_tpu_torch/csrc/<name>_
   kernel.cu`` (an unpacked older commit, say) built with the package's
   flags and loaded; ``using(root, name)`` makes the package's wrapper launch
-  it, so two commits' kernels run in turns in one process, on one card.
+  it, so two commits' kernels run in turns in one process, on one card
+  (``prefix``, ``level`` and ``delivery_batch``).
 
-Used by ``scripts/prefix_probe.py``, ``scripts/dvs_probe.py`` and
-``chip_smoke.py``; builds go to ``sanafe_tpu_torch/build/``.
+Used by ``scripts/prefix_probe.py``, ``scripts/dvs_probe.py``,
+``scripts/batch_delivery_probe.py`` and ``chip_smoke.py``; builds go to
+``sanafe_tpu_torch/build/``.
 """
 
 from __future__ import annotations
@@ -133,25 +135,29 @@ def other_library(root: Path, name: str) -> Library:
 
 @contextlib.contextmanager
 def using(root: Path, name: str):
-    """Within the block, the package's ``prefix`` or ``level`` wrapper
-    launches the kernel built from ``root``'s source (same C interface)."""
-    from sanafe_tpu_torch.ops import cuda_build, device_sweep, level_scan
+    """Within the block, the package's ``prefix``, ``level`` or
+    ``delivery_batch`` wrapper launches the kernel built from ``root``'s
+    source (same C interface)."""
+    from sanafe_tpu_torch.ops import (cuda_build, delivery, device_sweep,
+                                      level_scan)
 
     lib_file = other_library(root, name)
     cuda_build.build(lib_file)
-    module, attr, launch, error = {
-        "prefix": (device_sweep, "_prefix_library", "sanafe_prefix_launch",
-                   "sanafe_prefix_error_string"),
-        "level": (level_scan, "_library", "sanafe_level_launch",
-                  "sanafe_level_error_string"),
+    module, attr, functions = {
+        "prefix": (device_sweep, "_prefix_library", (
+            "sanafe_prefix_launch", "sanafe_prefix_error_string")),
+        "level": (level_scan, "_library", (
+            "sanafe_level_launch", "sanafe_level_error_string")),
+        "delivery_batch": (delivery, "_batch_library", (
+            "sanafe_delivery_batch_launch", "sanafe_delivery_batch_smem",
+            "sanafe_delivery_batch_error_string")),
     }[name]
     ours = getattr(module, attr)
     lib = ctypes.CDLL(str(lib_file.path))
     mine = ours()
-    getattr(lib, launch).restype = getattr(mine, launch).restype
-    getattr(lib, launch).argtypes = getattr(mine, launch).argtypes
-    getattr(lib, error).restype = ctypes.c_char_p
-    getattr(lib, error).argtypes = [ctypes.c_int]
+    for function in functions:
+        getattr(lib, function).restype = getattr(mine, function).restype
+        getattr(lib, function).argtypes = getattr(mine, function).argtypes
     setattr(module, attr, lambda: lib)
     try:
         yield lib

@@ -22,6 +22,13 @@ equal the CPU's. The reference goldens cfg5_hh (Hodgkin-Huxley plugin somas) and
 cfg_stochastic run on the card in float64 byte for byte, and a float32
 Hodgkin-Huxley chip gives the CPU's raster.
 
+The sample-batched delivery kernel (``csrc/delivery_batch_kernel.cu``)
+equals ``delivery_batch_plain`` and, sample by sample, ``delivery_kernel``
+bit for bit on integer weights (no row fired, one sample, 33 samples, 64
+in float64, tiles of 8 to 256, per-sample weights and arrival planes, and
+weights of -0.0), and a 3-sample ``ParameterSweep`` on the card gives the
+CPU's counters.
+
 Card only (``python -m pytest tests/test_torch_cuda.py -m cuda
 --noconftest``); the tests skip where there is no card.
 """
@@ -395,3 +402,140 @@ def test_hh_chip_on_cuda_matches_cpu(cuda):
     pa = np.asarray(a["potential_trace"].data)
     pb = np.asarray(b["potential_trace"].data)
     assert np.all(np.abs(pa - pb) <= 1e-6 * np.maximum(1.0, np.abs(pb)))
+
+
+BATCH_PATTERNS = ("none", "one_tile", "sparse", "all", "mixed")
+
+
+def _sample_planes(blk, n, patterns, dtype, device, seed=5):
+    """``[B, n_tiles, tile]`` fired planes, sample b fired by
+    ``patterns[b]``: nothing, a seeded half of one source tile, a seeded
+    quarter, everything, or every other source tile whole."""
+    rng = np.random.default_rng(seed)
+    planes = np.zeros((len(patterns), blk.n_pad), dtype=bool)
+    for b, pattern in enumerate(patterns):
+        if pattern == "one_tile":
+            lo = blk.tile if blk.n_tiles > 1 else 0
+            planes[b, lo:lo + blk.tile] = rng.random(blk.tile) < 0.5
+        elif pattern == "sparse":
+            planes[b, :n] = rng.random(n) < 0.25
+        elif pattern == "all":
+            planes[b, :n] = True
+        elif pattern == "mixed":
+            planes[b] = np.repeat(np.arange(blk.n_tiles) % 2 == 0, blk.tile)
+        planes[b, n:] = False
+    return torch.from_numpy(planes).to(device=device, dtype=dtype).view(
+        len(patterns), blk.n_tiles, blk.tile)
+
+
+def _same_bits(x, y):
+    if x.dtype == torch.bool:
+        return torch.equal(x, y)
+    view = torch.int64 if x.dtype == torch.float64 else torch.int32
+    return torch.equal(x.contiguous().view(view), y.contiguous().view(view))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    "none", "one_sample", "three", "b33", "b64_f64", "tiny", "n40",
+    "per_sample", "per_sample_counts", "negative_zero",
+])
+def test_delivery_batch_kernel_matches_plain(cuda, case):
+    from sanafe_tpu_torch.compile import compile_chip
+    from sanafe_tpu_torch.ops.delivery import (
+        delivery_batch_kernel,
+        delivery_batch_plain,
+        delivery_kernel,
+        pack_arrival_plane,
+    )
+    from sanafe_tpu_torch.ops.step import build_block_delivery
+
+    dtype = torch.float64 if case == "b64_f64" else torch.float32
+    shape = {"tiny": dict(cores=4, neurons_per_core=2,
+                          messages_per_neuron=2, spikes_per_message=2),
+             "n40": dict(cores=5, neurons_per_core=8)}.get(
+        case, dict(cores=16, neurons_per_core=128))
+    compiled = compile_chip(*random_chip(st, n_log_potential=0, **shape))
+    n = compiled.n_neurons
+    blk = build_block_delivery(compiled, dtype, cuda)
+    plane = pack_arrival_plane(blk.counts)
+    count = {"none": 4, "one_sample": 1, "three": 3, "b33": 33,
+             "b64_f64": 64}.get(case, 5)
+    patterns = ["none"] * count if case == "none" else [
+        BATCH_PATTERNS[(b + 1) % len(BATCH_PATTERNS)] for b in range(count)]
+    x = _sample_planes(blk, n, patterns, dtype, cuda)
+    weights, arrivals = blk.weights, plane
+    if case == "per_sample":
+        scale = torch.arange(1, count + 1, dtype=dtype, device=cuda)
+        weights = (blk.weights[None] * scale[:, None, None, None]
+                   ).contiguous()
+    if case in ("per_sample", "per_sample_counts"):
+        # sample b keeps the edges of every (b + 2)-th row of each block
+        keep = torch.stack([
+            (torch.arange(blk.tile, device=cuda) % (b + 2) == 0)
+            for b in range(count)])
+        arrivals = torch.stack([
+            pack_arrival_plane(blk.counts * keep[b][None, :, None].to(
+                torch.int8)) for b in range(count)])
+    if case == "negative_zero":
+        # seeded integer weights with -0.0 cells: sums that reach zero stay
+        # +0.0, as one delivery's do
+        rng = np.random.default_rng(3)
+        values = rng.choice([-2.0, -1.0, -0.0, 0.0, 1.0, 2.0],
+                            size=tuple(blk.weights.shape))
+        weights = torch.from_numpy(values).to(device=cuda, dtype=dtype)
+    args = (weights, arrivals, blk.src_tiles, blk.dest_offsets,
+            blk.max_blocks_per_dest)
+    before = delivery_batch_kernel.launches
+    cur, arrived = delivery_batch_kernel(x, *args)
+    ref_cur, ref_arrived = delivery_batch_plain(x, *args)
+    torch.cuda.synchronize()
+    assert delivery_batch_kernel.launches == before + 1
+    assert cur.shape == (count, blk.n_tiles, blk.tile)
+    assert arrived.dtype == torch.bool
+    assert _same_bits(cur, ref_cur) and torch.equal(arrived, ref_arrived)
+    for b in range(count):
+        w_b = weights[b] if weights.dim() == 4 else weights
+        a_b = arrivals[b] if arrivals.dim() == 4 else arrivals
+        one_cur, one_arrived = delivery_kernel(
+            x[b].contiguous(), w_b.contiguous(), a_b.contiguous(),
+            blk.src_tiles, blk.dest_offsets, blk.max_blocks_per_dest)
+        assert _same_bits(cur[b], one_cur), b
+        assert torch.equal(arrived[b], one_arrived), b
+    if case == "none":
+        assert not arrived.any() and not cur.any()
+    else:
+        assert arrived.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_parameter_sweep_on_cuda_matches_cpu(cuda, dtype):
+    """A 3-sample threshold sweep of a 2048-neuron random chip: the card
+    (block delivery through the batched kernel) gives the CPU's counters,
+    energies and sim_time within 1e-6 relative in float32 and 1e-12 in
+    float64."""
+    from sanafe_tpu_torch.ops.delivery import delivery_batch_kernel
+
+    outs = []
+    for device in (cuda, "cpu"):
+        arch, net = random_chip(st, cores=16, neurons_per_core=128,
+                                n_log_potential=0)
+        chip = st.SpikingChip(arch, device=device, dtype=dtype)
+        chip.load(net)
+        over = st.expand_group_values(chip.compiled, "threshold",
+                                      {"pop": np.array([32.0, 64.0, 200.0])})
+        sweep = st.ParameterSweep(chip, {"threshold": over})
+        before = delivery_batch_kernel.launches
+        outs.append(sweep.run(40, chunk=16))
+        launched = delivery_batch_kernel.launches - before
+        assert launched == (40 if device == cuda else 0)
+    a, b = outs
+    rel = 1e-12 if dtype == torch.float64 else 1e-6
+    for key in ("spikes", "neurons_fired", "neurons_updated", "packets_sent"):
+        np.testing.assert_array_equal(a[key], b[key])
+    assert len(set(a["neurons_fired"].tolist())) > 1
+    for key in a["energy"]:
+        np.testing.assert_allclose(a["energy"][key], b["energy"][key],
+                                   rtol=rel)
+    np.testing.assert_allclose(a["sim_time"], b["sim_time"], rtol=rel)
