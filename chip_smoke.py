@@ -136,13 +136,23 @@ own line:
    delivery_batch_plain and, sample by sample, delivery_kernel, bit for
    bit, at 1, 3, 16, 33 and 64 samples (a different fired pattern in each
    sample) on full's blocks (float32) and the 4096-neuron chip's
-   (float64), and with per-sample weights and arrival planes on the
-   latter; the kernel's ms at 1, 4, 16 and 64 samples of full's step-50
-   pattern beside 16 launches of delivery_kernel, delivery_batch_plain's
-   ms, torch.mm of the 16 fired rows against the dense float32 matrix (the
-   library call; timed only) and the bound (the larger of the union's
-   fired rows and arrival bits over 3.35 TB/s and one float add a cell a
-   sample over 33.5 T adds/s).
+   (float64), reading the live rows (the sweep's list, build_live_rows),
+   and at 16 samples with every row listed on both, and with per-sample
+   weights and arrival planes (the union list) on the latter; the
+   kernel's ms with its launches queued ahead (queued_ms; beside it CUDA
+   events around back-to-back calls, which the wrapper's host time sets
+   on the live rows) at 1, 4, 16 and 64 samples of full's step-50
+   pattern with the live rows and with every row listed, and on the
+   sweep's own planes at step 50 (captured from a run of the 16-sample
+   sweep, the samples' masks differ), beside 16 launches of
+   delivery_kernel, delivery_batch_plain's ms, the queued ms of
+   torch.sparse.mm of the transposed CSR matrix of the non-zero cells
+   against the 16 fired planes (the library call) and of torch.mm against
+   the dense float32 matrix (both timed only, currents equal), and the
+   bound (the larger of the live rows some
+   sample fired, their weights and arrival words, over 3.35 TB/s and one
+   float add a cell a sample over 33.5 T adds/s), with the dense figure
+   (every fired row of every active block) beside it.
 
 It prints the kernels' JSON record and the card's name and power limit on
 the lines before the last, and as the last line {"ok": true, "device":
@@ -204,6 +214,8 @@ SWEEP_DVS_STEPS = 200
 PARAM_SAMPLES = 16  # phase 15: the full chip's threshold sweep
 PARAM_STEPS = 200
 PARAM_PROFILE_STEPS = 50
+PARAM_CAPTURE_STEP = 50  # the sweep's planes timed in 15d
+QUEUE_SLEEP_CYCLES = 40_000_000  # queued_ms: about 20 ms of sleep
 PARAM_CHECKED = (0, 7, 15)  # samples held to single-chip runs
 PARAM_MID_SCALES = (0.5, 1.0, 2.0, 4.0)  # mid's threshold sweep
 PARAM_COST_SCALES = (1.0, 2.0, 10.0)  # mid's soma_energy_update sweep
@@ -604,6 +616,34 @@ def cuda_ms(fn, reps: int) -> float:
         fn()
     end.record()
     torch.cuda.synchronize()
+    return begin.elapsed_time(end) / reps
+
+
+def queued_ms(fn, reps: int) -> float:
+    """Mean ms of ``fn()`` on the card with its launches queued ahead, by
+    CUDA events, after one warm call: the card first runs a sleep kernel
+    while the host enqueues the ``reps`` calls, so the host's time between
+    launches (a Python wrapper's checks, which set the pace of
+    back-to-back calls of kernels that take microseconds) is left out.
+    Fails if the host took longer to enqueue than the card slept."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    pre, begin, end = (torch.cuda.Event(enable_timing=True)
+                       for _ in range(3))
+    pre.record()
+    torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
+    begin.record()
+    start = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - start) * 1e3
+    end.record()
+    torch.cuda.synchronize()
+    slept = pre.elapsed_time(begin)
+    check(host_ms < slept, f"queued_ms: the host took {host_ms} ms to "
+          f"enqueue {reps} calls, the card slept only {slept} ms")
     return begin.elapsed_time(end) / reps
 
 
@@ -1660,16 +1700,17 @@ def batch_planes(blk, n: int, samples: int, dtype, device):
         for b in range(samples)])
 
 
-def hold_batch(x, weights, arrivals, blk, name: str) -> float:
-    """The batched kernel against delivery_batch_plain on the same card
-    tensors and against delivery_kernel sample by sample, bit for bit;
-    returns the largest absolute difference from the plain version."""
+def hold_batch(x, weights, arrivals, blk, live, name: str) -> float:
+    """The batched kernel, reading the rows of ``live``, against
+    delivery_batch_plain on the same card tensors and against
+    delivery_kernel sample by sample, bit for bit; returns the largest
+    absolute difference from the plain version."""
     import torch
 
     from sanafe_tpu_torch.ops import delivery
 
     args = (weights, arrivals, blk.src_tiles, blk.dest_offsets,
-            blk.max_blocks_per_dest)
+            blk.max_blocks_per_dest, live)
     cur, arrived = delivery.delivery_batch_kernel(x, *args)
     ref_cur, ref_arrived = delivery.delivery_batch_plain(x, *args)
     torch.cuda.synchronize()
@@ -1687,6 +1728,95 @@ def hold_batch(x, weights, arrivals, blk, name: str) -> float:
                                                          one_arrived),
               f"{name}: sample {b} differs from delivery_kernel")
     return float((cur - ref_cur).abs().max())
+
+
+def sweep_plane(sweep, steps: int):
+    """The [B, n_tiles, tile] fired planes that the sweep's batched
+    delivery takes at step ``steps`` of a run from the start (a run of
+    ``steps`` steps through ``ops/step.py``'s wrapper)."""
+    from sanafe_tpu_torch.ops import step as step_mod
+
+    kernel = step_mod.delivery_batch_kernel
+    seen = []
+
+    def record(x, *args):
+        seen[:] = [x]
+        return kernel(x, *args)
+
+    step_mod.delivery_batch_kernel = record
+    try:
+        sweep.run(steps)
+    finally:
+        step_mod.delivery_batch_kernel = kernel
+    return seen[0].clone()
+
+
+def live_fired(x, blk, live) -> tuple:
+    """The entries of the live-row list ``live`` that some sample of ``x``
+    [B, n_tiles, tile] fired (the rows the batched kernel reads), and the
+    adds they take (one a cell a sample that fired the row)."""
+    import torch
+
+    counts = (live.offsets[1:] - live.offsets[:-1]).long()
+    block = torch.repeat_interleave(
+        torch.arange(counts.numel(), device=counts.device), counts)
+    neuron = (blk.src_tiles.long()[block] * blk.tile
+              + live.rows[:live.count].long())
+    fired = x.reshape(x.shape[0], -1)[:, neuron] != 0  # [B, entries]
+    return int(fired.any(dim=0).sum()), int(fired.sum()) * blk.tile
+
+
+def batch_bounds(x, blk, live) -> dict:
+    """The batched kernel's bound on ``x``: the live rows some sample
+    fired (each weight row and its arrival words read once), the list, the
+    planes read and the results written; the adds one a cell a sample.
+    Beside it the dense figure, which counts every fired row of every
+    active block."""
+    elem = x.element_size()
+    words = -(-blk.tile // 32)
+    row_b = blk.tile * elem + words * 4
+    fixed = (x.shape[0] * blk.n_pad * (2 * elem + 1)
+             + blk.src_tiles.numel() * 4 + blk.dest_offsets.numel() * 4)
+    rows, adds = live_fired(x, blk, live)
+    n_bytes = rows * row_b + fixed + live.count + live.offsets.numel() * 4
+    ops_s = F32_ADDS_S if elem == 4 else F64_OPS_S / 2  # adds
+    bound_ms, bound_by = bound(n_bytes, adds, ops_s)
+    union = (x.sum(dim=0) > 0).to(x.dtype)
+    dense_rows = int(union.sum(dim=1)[blk.src_tiles.long()].sum())
+    dense_adds = int(x.sum(dim=2)[:, blk.src_tiles.long()].sum()) * blk.tile
+    dense_ms, dense_by = bound(dense_rows * row_b + fixed, dense_adds, ops_s)
+    return {"rows": rows, "bytes": n_bytes, "adds": adds, "ms": bound_ms,
+            "by": bound_by, "dense_rows": dense_rows, "dense_ms": dense_ms,
+            "dense_by": dense_by}
+
+
+def dense_weights(blk):
+    """The blocks' weights as one dense [n_pad, n_pad] matrix (row: source
+    neuron), for the library calls timed beside the delivery kernels."""
+    import torch
+
+    dense = torch.zeros((blk.n_pad, blk.n_pad), dtype=blk.weights.dtype,
+                        device=blk.weights.device)
+    dense.view(blk.n_tiles, blk.tile, blk.n_tiles, blk.tile).permute(
+        0, 2, 1, 3).index_put_(
+        (blk.src_tiles.long(), blk.dest_tiles.long()), blk.weights,
+        accumulate=True)
+    return dense
+
+
+def csr_weights(blk):
+    """The transposed CSR matrix of the blocks' non-zero cells (row:
+    destination neuron), for ``torch.sparse.mm`` beside the batched
+    kernel."""
+    import torch
+
+    cell = blk.weights.nonzero()
+    src = blk.src_tiles.long()[cell[:, 0]] * blk.tile + cell[:, 1]
+    dst = blk.dest_tiles.long()[cell[:, 0]] * blk.tile + cell[:, 2]
+    values = blk.weights[cell[:, 0], cell[:, 1], cell[:, 2]]
+    return torch.sparse_coo_tensor(torch.stack([dst, src]), values,
+                                   (blk.n_pad, blk.n_pad)).coalesce(
+    ).to_sparse_csr()
 
 
 def sweep_phase(st, cuda, card, full_step50, single_full) -> dict:
@@ -1717,7 +1847,9 @@ def sweep_phase(st, cuda, card, full_step50, single_full) -> dict:
     prog = sweep.prog
     check(prog.kernel_delivery and not prog.fused_rollup
           and prog.dtype == torch.float32, "full sweep: program shape")
-    sweep.run(2)  # warm
+    # warm, and the planes the batched kernel takes at step
+    # PARAM_CAPTURE_STEP, where the samples' masks differ (timed in 15d)
+    sweep_x = sweep_plane(sweep, PARAM_CAPTURE_STEP)
     torch.cuda.synchronize()
 
     def refuse(*args, **kwargs):
@@ -1828,23 +1960,36 @@ def sweep_phase(st, cuda, card, full_step50, single_full) -> dict:
     torch.cuda.empty_cache()
 
     # --- 15c. the batched kernel against its plain version ---
+    from sanafe_tpu_torch.ops.delivery import build_live_rows, every_row_live
+
     blk = prog.block
+    live = sweep.arrays["block_live_rows"]
+    every = every_row_live(blk.weights.shape[0], blk.tile, cuda)
     n_full = chip.compiled.n_neurons
     max_err = 0.0
     for samples in BATCH_CHECKS:
         x = batch_planes(blk, n_full, samples, torch.float32, cuda)
         max_err = max(max_err, hold_batch(x, blk.weights, blk.arrivals, blk,
-                                          f"full B={samples}"))
+                                          live, f"full B={samples}"))
+    x = batch_planes(blk, n_full, PARAM_SAMPLES, torch.float32, cuda)
+    max_err = max(max_err, hold_batch(x, blk.weights, blk.arrivals, blk,
+                                      every, "full every row listed"))
     mid_compiled = compile_chip(*random_chip(st, **MID))
     mblk = build_block_delivery(mid_compiled, torch.float64, cuda)
     mplane = pack_arrival_plane(mblk.counts)
+    mlive = build_live_rows(mblk.weights, mplane)
     n_mid = mid_compiled.n_neurons
     for samples in BATCH_CHECKS:
         x = batch_planes(mblk, n_mid, samples, torch.float64, cuda)
         max_err = max(max_err, hold_batch(x, mblk.weights, mplane, mblk,
-                                          f"mid float64 B={samples}"))
+                                          mlive, f"mid float64 B={samples}"))
+    x = batch_planes(mblk, n_mid, PARAM_SAMPLES, torch.float64, cuda)
+    max_err = max(max_err, hold_batch(
+        x, mblk.weights, mplane, mblk,
+        every_row_live(mblk.weights.shape[0], mblk.tile, cuda),
+        "mid float64 every row listed"))
     # per-sample weights (scaled) and arrival planes (every (b + 2)-th row
-    # of each block keeps its edges)
+    # of each block keeps its edges); the list is the union
     samples = 3
     x = batch_planes(mblk, n_mid, samples, torch.float64, cuda)
     scale = torch.arange(1, samples + 1, dtype=torch.float64, device=cuda)
@@ -1853,26 +1998,40 @@ def sweep_phase(st, cuda, card, full_step50, single_full) -> dict:
     arrivals = torch.stack([
         pack_arrival_plane(mblk.counts * (rows % (b + 2) == 0)[
             None, :, None].to(torch.int8)) for b in range(samples)])
-    max_err = max(max_err, hold_batch(x, weights, arrivals, mblk,
-                                      "mid float64 per-sample weights"))
+    max_err = max(max_err, hold_batch(
+        x, weights, arrivals, mblk, build_live_rows(weights, arrivals),
+        "mid float64 per-sample weights"))
     print(f"delivery_batch_vs_plain: full float32 and mid float64 at "
           f"{list(BATCH_CHECKS)} samples (patterns {list(PATTERNS)} in "
-          f"turn), mid with per-sample weights and arrival planes: equal "
+          f"turn) reading the live rows ({live.count} of "
+          f"{blk.weights.shape[0] * blk.tile} on full, {mlive.count} of "
+          f"{mblk.weights.shape[0] * mblk.tile} on mid), both at "
+          f"{PARAM_SAMPLES} samples with every row listed, mid with "
+          f"per-sample weights and arrival planes (the union list): equal "
           f"to delivery_batch_plain and to delivery_kernel sample by sample "
           f"bit for bit, max_abs_err={max_err} OK", flush=True)
     del mblk, mplane, weights, arrivals, x
     torch.cuda.empty_cache()
 
-    # --- 15d. timing on full's step-50 pattern ---
+    # --- 15d. timing on full's step-50 pattern and the sweep's own plane ---
     one_x = torch.from_numpy(full_step50).to(
         device=cuda, dtype=torch.float32).view(blk.n_tiles, blk.tile)
     args = (blk.weights, blk.arrivals, blk.src_tiles, blk.dest_offsets,
             blk.max_blocks_per_dest)
-    times = {}
+    # with the launches queued ahead (the wrapper's host time between
+    # back-to-back calls is longer than the kernels on the live rows), and
+    # back to back
+    times, walls, dense_times = {}, {}, {}
     for samples in BATCH_TIMINGS:
         xb = one_x.expand(samples, -1, -1).contiguous()
-        times[samples] = cuda_ms(
-            lambda: delivery.delivery_batch_kernel(xb, *args), 20)
+        times[samples] = queued_ms(
+            lambda: delivery.delivery_batch_kernel(xb, *args, live), 20)
+        walls[samples] = cuda_ms(
+            lambda: delivery.delivery_batch_kernel(xb, *args, live), 20)
+        dense_times[samples] = queued_ms(
+            lambda: delivery.delivery_batch_kernel(xb, *args, every), 10)
+    sweep_ms = queued_ms(
+        lambda: delivery.delivery_batch_kernel(sweep_x, *args, live), 20)
     x16 = one_x.expand(PARAM_SAMPLES, -1, -1).contiguous()
 
     def sixteen():
@@ -1880,49 +2039,52 @@ def sweep_phase(st, cuda, card, full_step50, single_full) -> dict:
             delivery.delivery_kernel(one_x, *args)
 
     single_ms = cuda_ms(sixteen, 5)
-    plain_ms = cuda_ms(lambda: delivery.delivery_batch_plain(x16, *args), 2)
-    # bytes: the union's fired rows of every active block (a float32 and
-    # an arrival bit a cell), the fired planes read and the results
-    # written; adds: one a cell a sample of each sample's fired rows
-    rows = int(one_x.sum(dim=1)[blk.src_tiles.long()].sum())
-    words = blk.arrivals.shape[2]
-    n_pad = blk.n_pad
-    read_b = rows * (blk.tile * 4 + words * 4)
-    fixed_b = (PARAM_SAMPLES * n_pad * (4 + 4 + 1)
-               + blk.src_tiles.numel() * 4 + blk.dest_offsets.numel() * 4)
-    bound_ms, bound_by = bound(read_b + fixed_b,
-                               PARAM_SAMPLES * rows * blk.tile, F32_ADDS_S)
-    dense = torch.zeros((n_pad, n_pad), dtype=torch.float32, device=cuda)
-    dense.view(blk.n_tiles, blk.tile, blk.n_tiles, blk.tile).permute(
-        0, 2, 1, 3).index_put_(
-        (blk.src_tiles.long(), blk.dest_tiles.long()), blk.weights,
-        accumulate=True)
+    plain_ms = cuda_ms(
+        lambda: delivery.delivery_batch_plain(x16, *args, live), 2)
+    b16 = batch_bounds(x16, blk, live)
+    b_sweep = batch_bounds(sweep_x, blk, live)
+    dense, csr = dense_weights(blk), csr_weights(blk)
     lhs = x16.reshape(PARAM_SAMPLES, -1)
-    library_ms = cuda_ms(lambda: torch.mm(lhs, dense), 10)
-    cur, _ = delivery.delivery_batch_kernel(x16, *args)
-    library_err = float((torch.mm(lhs, dense).reshape(cur.shape) - cur)
-                        .abs().max())
-    check(library_err == 0.0, "delivery batch: torch.mm currents differ "
-          f"from the kernel's by {library_err} (integer weights)")
+    rhs = lhs.t().contiguous()
+    mm_ms = queued_ms(lambda: torch.mm(lhs, dense), 10)
+    library_ms = queued_ms(lambda: torch.sparse.mm(csr, rhs), 20)
+    cur, _ = delivery.delivery_batch_kernel(x16, *args, live)
+    cur = cur.reshape(PARAM_SAMPLES, -1)
+    library_err = max(
+        float((torch.mm(lhs, dense) - cur).abs().max()),
+        float((torch.sparse.mm(csr, rhs).t() - cur).abs().max()))
+    check(library_err == 0.0, "delivery batch: torch.mm or torch.sparse.mm "
+          f"currents differ from the kernel's by {library_err} (integer "
+          "weights)")
     print(f"delivery_batch_timing: full step-50 pattern "
-          f"({int(one_x.sum())} of {n_full} fired, {rows} fired block "
-          f"rows) in every sample: delivery_batch_kernel ms at "
-          f"{ {b: times[b] for b in BATCH_TIMINGS} } samples; "
+          f"({int(one_x.sum())} of {n_full} fired; {b16['rows']} live fired "
+          f"rows of {live.count} live, {b16['dense_rows']} fired block "
+          f"rows) in every sample: delivery_batch_kernel ms (launches "
+          f"queued ahead) at "
+          f"{ {b: times[b] for b in BATCH_TIMINGS} } samples (CUDA events "
+          f"around back-to-back calls {walls}), every row "
+          f"listed {dense_times}; the sweep's own planes at step "
+          f"{PARAM_CAPTURE_STEP} ({PARAM_SAMPLES} samples, "
+          f"{int(sweep_x.sum())} fired, {b_sweep['rows']} live fired rows) "
+          f"{sweep_ms} ms (bound {b_sweep['ms']} ms, {b_sweep['by']}); "
           f"{PARAM_SAMPLES} delivery_kernel launches {single_ms} ms; "
           f"delivery_batch_plain at {PARAM_SAMPLES} samples on CUDA tensors "
-          f"{plain_ms} ms; torch.mm of the {PARAM_SAMPLES} fired rows "
-          f"against the dense {n_pad}x{n_pad} float32 weights "
-          f"{library_ms} ms (currents equal); bound at {PARAM_SAMPLES} "
-          f"samples {bound_ms} ms ({bound_by}; {read_b + fixed_b} B, "
-          f"{PARAM_SAMPLES * rows * blk.tile} adds; "
-          f"{bound_ms / times[PARAM_SAMPLES]} of it reached) | {card}",
-          flush=True)
-    del dense, lhs, cur, x16, sweep, prog, blk, chip
+          f"{plain_ms} ms; ms (queued) of torch.sparse.mm of the transposed "
+          f"CSR matrix ({csr.values().numel()} non-zero cells) against the "
+          f"{PARAM_SAMPLES} fired planes {library_ms}, of torch.mm against "
+          f"the dense {blk.n_pad}x{blk.n_pad} float32 weights {mm_ms} "
+          f"(currents equal); bound at {PARAM_SAMPLES} samples "
+          f"{b16['ms']} ms ({b16['by']}; {b16['bytes']} B, {b16['adds']} "
+          f"adds; {b16['ms'] / times[PARAM_SAMPLES]} of it reached); the "
+          f"dense figure (every fired row of every active block) "
+          f"{b16['dense_ms']} ms ({b16['dense_by']}) | {card}", flush=True)
+    del dense, csr, lhs, rhs, cur, x16, sweep_x, sweep, prog, blk, chip
+    del live, every
     torch.cuda.empty_cache()
     return {"launches": counts["delivery_batch_kernel"],
             "max_abs_err": max_err, "ms": times[PARAM_SAMPLES],
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms}
+            "plain_ms": plain_ms, "bound_ms": b16["ms"],
+            "bound_by": b16["by"], "library_ms": library_ms}
 
 
 def main() -> int:
@@ -2367,12 +2529,7 @@ def run(tmp: Path) -> int:
     earlier_bound, _ = bound(rows * blk.tile * 5 + x.numel() * 4
                              + blk.n_pad * 8, rows * blk.tile * 2)
     # the library call: the fired row against the dense [N, N] weights
-    dense = torch.zeros((blk.n_pad, blk.n_pad), dtype=torch.float32,
-                        device=cuda)
-    dense.view(blk.n_tiles, blk.tile, blk.n_tiles, blk.tile).permute(
-        0, 2, 1, 3).index_put_(
-        (blk.src_tiles.long(), blk.dest_tiles.long()), blk.weights,
-        accumulate=True)
+    dense = dense_weights(blk)
     row = x.reshape(1, -1)
     library_ms = cuda_ms(lambda: torch.mm(row, dense), 20)
     cur, arrived = delivery.delivery_kernel(*args)

@@ -11,8 +11,9 @@ runs B parameter samples of the SAME mapped chip through one step
 - connectivity (block weights, conv filters) stays shared and is read from
   device memory once per step for ALL samples: block delivery goes through
   ``delivery_batch_kernel`` (``csrc/delivery_batch_kernel.cu``) on CUDA,
-  which reads each fired weight row once and adds it into every sample
-  that fired it, and
+  which reads each fired weight row that holds an edge (the live rows,
+  listed once per sweep) once and adds it into every sample that fired
+  it, and
 - every overridden per-neuron parameter or cost column carries a
   ``[B, ...]`` axis through the same step the single-chip simulator runs,
   so batched counters are exactly those of B sequential ``sim()`` calls
@@ -49,7 +50,7 @@ import torch
 from .chip import _not_ported
 from .ops.conv import full_float32_matmul, hwio_to_oihw
 from .ops.dag_chunk import rollup_stats
-from .ops.delivery import pack_arrival_plane
+from .ops.delivery import build_live_rows, pack_arrival_plane
 from .ops.step import _timestep, initial_state, make_device_program
 
 __all__ = ["ParameterSweep", "expand_group_values"]
@@ -194,6 +195,10 @@ class ParameterSweep:
                     [pack_arrival_plane(v) for v in values])
             else:
                 self.arrays[name] = values
+        if prog.kernel_delivery:
+            # the rows the kernel reads: those with an edge in any sample
+            self.arrays["block_live_rows"] = build_live_rows(
+                self.arrays["block_weights"], self.arrays["block_arrivals"])
         self.batch = B
 
     def run(self, timesteps: int, chunk: int = 4096) -> dict:

@@ -20,14 +20,17 @@ plain version). On CPU tensors the wrapper takes the plain versions.
 
 ``delivery_batch_kernel`` (``csrc/delivery_batch_kernel.cu``) is the same
 delivery for B fired vectors at once, the sample axis of ``ParameterSweep``
-(sanafe_tpu's ``jax.vmap`` of the Pallas kernel): each weight row fired in
-any sample is read once and added into every sample that fired it. Its
-plain version is ``delivery_batch_plain``.
+(sanafe_tpu's ``jax.vmap`` of the Pallas kernel): each live weight row
+(``build_live_rows``: a row with a non-zero weight or an arrival bit)
+fired in any sample is read once and added into every sample that fired
+it; the other rows would add +0.0 and are not read. Its plain version is
+``delivery_batch_plain``.
 """
 
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -239,12 +242,66 @@ def delivery_kernel(fired_tiles, weights, arrivals, src_tiles, dest_offsets,
 delivery_kernel.launches = 0
 
 
+class LiveRows(NamedTuple):
+    """Each block's live rows in ascending order: block ``k``'s are
+    ``rows[offsets[k]:offsets[k + 1]]``. ``rows`` is uint8, padded with
+    zeros to a multiple of 16 bytes (at least 16); ``offsets`` is int32
+    ``[n_blocks + 1]``; ``count`` is ``offsets[-1]``, kept on the host."""
+
+    rows: torch.Tensor
+    offsets: torch.Tensor
+    count: int
+
+
+def _live_rows_of(live: torch.Tensor) -> LiveRows:
+    """``LiveRows`` of a bool ``[n_blocks, tile]`` live-row mask."""
+    n_blocks = live.shape[0]
+    offsets = torch.zeros(n_blocks + 1, dtype=torch.int32, device=live.device)
+    offsets[1:] = torch.cumsum(live.sum(dim=1), dim=0)
+    index = live.nonzero()[:, 1]  # row-major: blocks, then rows, ascending
+    count = index.numel()
+    rows = torch.zeros(max(16, -(-count // 16) * 16), dtype=torch.uint8,
+                       device=live.device)
+    rows[:count] = index
+    return LiveRows(rows, offsets, count)
+
+
+def build_live_rows(weights: torch.Tensor,
+                    arrivals: torch.Tensor) -> LiveRows:
+    """The live rows of the blocks: a row is live where any of its weights
+    is not +-0.0 (a NaN or inf weight counts) or any of its arrival bits is
+    set. ``weights`` [n_blocks, tile, tile] and ``arrivals`` [n_blocks,
+    tile, words] (``pack_arrival_plane``), either with a leading ``[B]``
+    axis of per-sample sets: then the union over the samples. Built once,
+    on the tensors' device; ``delivery_batch_kernel`` reads only these
+    rows."""
+    n_blocks, tile = weights.shape[-3], weights.shape[-2]
+    live = torch.zeros((n_blocks, tile), dtype=torch.bool,
+                       device=weights.device)
+    step = 256  # blocks at a time: the bool temporaries are a byte a cell
+    for lo in range(0, n_blocks, step):
+        hi = min(lo + step, n_blocks)
+        part = (weights[..., lo:hi, :, :] != 0).any(dim=-1) | (
+            arrivals[..., lo:hi, :, :] != 0).any(dim=-1)
+        live[lo:hi] = part.reshape(-1, hi - lo, tile).any(dim=0)
+    return _live_rows_of(live)
+
+
+def every_row_live(n_blocks: int, tile: int, device) -> LiveRows:
+    """A ``LiveRows`` listing every row of every block (what dense
+    connectivity gives)."""
+    return _live_rows_of(torch.ones((n_blocks, tile), dtype=torch.bool,
+                                    device=device))
+
+
 def delivery_batch_plain(fired_tiles, weights, arrivals, src_tiles,
-                         dest_offsets, max_blocks_per_dest: int):
+                         dest_offsets, max_blocks_per_dest: int,
+                         live_rows: LiveRows = None):
     """Plain version of ``delivery_batch_kernel``: the einsum and sorted
     segment sum of ``ops/step.py:_block_deliver_rows`` over the samples,
     and the arrival plane ORed over each sample's fired rows (an einsum of
-    the unpacked plane, ``> 0``).
+    the unpacked plane, ``> 0``). It multiplies every row: ``live_rows``
+    is taken for the kernel's signature and not read.
 
     ``fired_tiles`` [B, n_tiles, tile] 0/1 in the program dtype;
     ``weights`` [n_blocks, tile, tile] or, one set a sample,
@@ -252,6 +309,7 @@ def delivery_batch_plain(fired_tiles, weights, arrivals, src_tiles,
     [B, n_blocks, tile, words]; ``src_tiles`` and ``dest_offsets`` as for
     ``delivery_kernel``. Returns (currents [B, n_tiles, tile], arrived
     [B, n_tiles, tile] bool)."""
+    del live_rows
     tile = fired_tiles.shape[2]
     xs = fired_tiles[:, src_tiles.long()]  # [B, n_blocks, tile]
     counts = unpack_arrival_plane(
@@ -280,28 +338,33 @@ def _batch_library():
 
 
 def delivery_batch_kernel(fired_tiles, weights, arrivals, src_tiles,
-                          dest_offsets, max_blocks_per_dest: int):
-    """B deliveries at once: the CUDA kernels (compaction over the samples,
-    then the sums) for CUDA tensors, ``delivery_batch_plain`` for CPU
-    tensors. Arguments and results as ``delivery_batch_plain``'s.
+                          dest_offsets, max_blocks_per_dest: int,
+                          live_rows: LiveRows):
+    """B deliveries at once: the CUDA kernels (the sample masks, then the
+    sums) for CUDA tensors, ``delivery_batch_plain`` for CPU tensors.
+    Arguments and results as ``delivery_batch_plain``'s, and ``live_rows``
+    (``build_live_rows`` of these weights and arrivals, or a list with more
+    rows, such as ``every_row_live``).
 
-    Shared ``weights`` and ``arrivals`` are read once a step for all
-    samples: a weight row fired in any sample is read once and added into
-    the accumulators of the samples that fired it. A leading ``[B]`` axis on
-    either (a sweep that overrides ``block_weights`` or ``block_counts``)
-    makes the kernel read each sample's own, its fired rows only. Each
-    sample adds its fired rows in ascending order within a block and its
-    blocks in ascending order, from +0.0, skipping rows it did not fire: a
-    fixed order, equal bit for bit to ``delivery_kernel`` and to
-    ``delivery_batch_plain`` wherever the partial sums are exact (integer
-    weights), and to rounding otherwise. Float32 and float64; launches on
-    the current stream and does not synchronise.
+    The kernel reads only the listed rows that some sample fired, each once
+    a step for all samples sharing ``weights`` and ``arrivals``, and adds it
+    into every sample that fired it. A leading ``[B]`` axis on either (a
+    sweep that overrides ``block_weights`` or ``block_counts``) makes it
+    read each sample's own, that sample's fired rows only; the list is then
+    the union over the samples. Each sample adds its fired rows in
+    ascending order within a block and its blocks in ascending order, from
+    +0.0; an unlisted row holds only +-0.0 and changes no bit of a sum. So
+    two launches on the same inputs give the same bits, and the result
+    equals ``delivery_kernel`` and ``delivery_batch_plain`` bit for bit
+    wherever the partial sums are exact (integer weights), and to rounding
+    otherwise. Float32 and float64; launches on the current stream and does
+    not synchronise.
     ``delivery_batch_kernel.launches`` counts its launches."""
     dev = fired_tiles.device
     if dev.type == "cpu":
         return delivery_batch_plain(fired_tiles, weights, arrivals,
                                     src_tiles, dest_offsets,
-                                    max_blocks_per_dest)
+                                    max_blocks_per_dest, live_rows)
     if dev.type != "cuda":
         raise ValueError(f"delivery_batch_kernel: unsupported device {dev}")
     dtype = fired_tiles.dtype
@@ -318,6 +381,15 @@ def delivery_batch_kernel(fired_tiles, weights, arrivals, src_tiles,
     if n_blocks * tile >= 2**31:
         raise ValueError("delivery_batch_kernel: the kernel indexes weight "
                          "rows with int32; 2**31 or more rows")
+    if not isinstance(live_rows, LiveRows):
+        raise ValueError("delivery_batch_kernel: live_rows must be a "
+                         "LiveRows (build_live_rows)")
+    n_live = live_rows.rows.numel()
+    if n_live % 16 or not 0 <= live_rows.count <= min(n_live,
+                                                      n_blocks * tile):
+        raise ValueError(
+            f"delivery_batch_kernel: live_rows lists {live_rows.count} rows "
+            f"in {n_live} bytes for {n_blocks} blocks of {tile} rows")
     words = -(-tile // 32)
     w_shape = (n_blocks, tile, tile)
     a_shape = (n_blocks, tile, words)
@@ -331,6 +403,9 @@ def delivery_batch_kernel(fired_tiles, weights, arrivals, src_tiles,
         ("arrivals", arrivals, a_shape, torch.int32),
         ("src_tiles", src_tiles, (n_blocks,), torch.int32),
         ("dest_offsets", dest_offsets, (n_tiles + 1,), torch.int32),
+        ("live_rows.rows", live_rows.rows, (n_live,), torch.uint8),
+        ("live_rows.offsets", live_rows.offsets, (n_blocks + 1,),
+         torch.int32),
     )
     pointers = []
     for name, x, shape, dt in expect:
@@ -356,21 +431,16 @@ def delivery_batch_kernel(fired_tiles, weights, arrivals, src_tiles,
             "shared memory")
     out_cur = torch.empty((batch, n_tiles, tile), dtype=dtype, device=dev)
     # one allocation, 16-byte aligned parts: the arrived planes, then the
-    # kernel's scratch: each source tile's list of the rows any sample
-    # fired (a byte a row), the lists' int32 lengths, and each row's
-    # sample mask (ceil(B/32) int32 words a row)
+    # kernel's scratch, each neuron's sample mask (ceil(B/32) int32 words
+    # a neuron, word-major)
     n = n_tiles * tile
-    mask_words = -(-batch // 32)
-    parts = [batch * n, n, 4 * n_tiles, 4 * n * mask_words]
-    offsets = [0]
-    for size in parts:
-        offsets.append(offsets[-1] + -(-size // 16) * 16)
-    scratch = torch.empty(offsets[-1], dtype=torch.uint8, device=dev)
+    arrived_bytes = -(-batch * n // 16) * 16
+    scratch = torch.empty(arrived_bytes + 4 * n * -(-batch // 32),
+                          dtype=torch.uint8, device=dev)
     base = scratch.data_ptr()
     err = lib.sanafe_delivery_batch_launch(
-        *pointers, base + offsets[1], base + offsets[2], base + offsets[3],
-        out_cur.data_ptr(), base, w_stride, a_stride, batch, n_tiles, tile,
-        blk_cap, is_double, dev.index or 0,
+        *pointers, base + arrived_bytes, out_cur.data_ptr(), base, w_stride,
+        a_stride, batch, n_tiles, tile, blk_cap, is_double, dev.index or 0,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err:

@@ -28,8 +28,9 @@ holds ``[B, ...]`` tensors and any per-neuron array may be ``[B, n]``;
 elementwise ops broadcast, gathers index the last axis, reductions run
 over ``dim=-1`` and segment sums keep each sample's bins apart. Block
 delivery of a batch goes through ``delivery_batch_kernel``, which reads
-each fired weight row once for every sample. Without the sample axis the
-step runs the same ops as before.
+each fired live weight row once for every sample (the live rows are
+``a["block_live_rows"]``, which ``ParameterSweep`` builds). Without the
+sample axis the step runs the same ops as before.
 """
 
 from __future__ import annotations
@@ -1111,7 +1112,8 @@ def _block_deliver(prog: DeviceProgram, a, fired_f, n: int):
             acc, arrived = delivery_batch_kernel(
                 fired_pad.view(rows, blk.n_tiles, blk.tile),
                 a["block_weights"], a["block_arrivals"], blk.src_tiles,
-                blk.dest_offsets, blk.max_blocks_per_dest)
+                blk.dest_offsets, blk.max_blocks_per_dest,
+                a["block_live_rows"])
             return (acc.reshape(rows, -1)[:, :n],
                     arrived.reshape(rows, -1)[:, :n])
         return _block_deliver_rows(prog, a, fired_f, n)

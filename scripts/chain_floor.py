@@ -11,10 +11,10 @@ prefix and level kernels of another checkout.
   kernel.cu`` (an unpacked older commit, say) built with the package's
   flags and loaded; ``using(root, name)`` makes the package's wrapper launch
   it, so two commits' kernels run in turns in one process, on one card
-  (``prefix``, ``level`` and ``delivery_batch``).
+  (``prefix`` and ``level``).
 
-Used by ``scripts/prefix_probe.py``, ``scripts/dvs_probe.py``,
-``scripts/batch_delivery_probe.py`` and ``chip_smoke.py``; builds go to
+Used by ``scripts/prefix_probe.py``, ``scripts/dvs_probe.py`` and
+``chip_smoke.py``; builds go to
 ``sanafe_tpu_torch/build/``.
 """
 
@@ -135,11 +135,9 @@ def other_library(root: Path, name: str) -> Library:
 
 @contextlib.contextmanager
 def using(root: Path, name: str):
-    """Within the block, the package's ``prefix``, ``level`` or
-    ``delivery_batch`` wrapper launches the kernel built from ``root``'s
-    source (same C interface)."""
-    from sanafe_tpu_torch.ops import (cuda_build, delivery, device_sweep,
-                                      level_scan)
+    """Within the block, the package's ``prefix`` or ``level`` wrapper
+    launches the kernel built from ``root``'s source (same C interface)."""
+    from sanafe_tpu_torch.ops import cuda_build, device_sweep, level_scan
 
     lib_file = other_library(root, name)
     cuda_build.build(lib_file)
@@ -148,9 +146,6 @@ def using(root: Path, name: str):
             "sanafe_prefix_launch", "sanafe_prefix_error_string")),
         "level": (level_scan, "_library", (
             "sanafe_level_launch", "sanafe_level_error_string")),
-        "delivery_batch": (delivery, "_batch_library", (
-            "sanafe_delivery_batch_launch", "sanafe_delivery_batch_smem",
-            "sanafe_delivery_batch_error_string")),
     }[name]
     ours = getattr(module, attr)
     lib = ctypes.CDLL(str(lib_file.path))

@@ -36,6 +36,7 @@ from sanafe_tpu_torch import batch as port_batch
 from sanafe_tpu_torch.ops import step as port_step
 from sanafe_tpu_torch.ops.conv import hwio_to_oihw
 from sanafe_tpu_torch.ops.delivery import (
+    build_live_rows,
     delivery_batch_kernel,
     delivery_batch_plain,
     delivery_packed_plain,
@@ -335,7 +336,8 @@ def test_delivery_batch_plain_matches_packed_plain(dtype):
         args = (weights, arrivals, blk.src_tiles, blk.dest_offsets,
                 blk.max_blocks_per_dest)
         cur, arrived = delivery_batch_plain(x, *args)
-        kcur, karrived = delivery_batch_kernel(x, *args)  # CPU: the plain
+        kcur, karrived = delivery_batch_kernel(  # CPU: the plain version
+            x, *args, build_live_rows(weights, arrivals))
         assert torch.equal(cur, kcur) and torch.equal(arrived, karrived)
         assert cur.shape == (len(rates), blk.n_tiles, blk.tile)
         for b in range(len(rates)):

@@ -24,10 +24,11 @@ Hodgkin-Huxley chip gives the CPU's raster.
 
 The sample-batched delivery kernel (``csrc/delivery_batch_kernel.cu``)
 equals ``delivery_batch_plain`` and, sample by sample, ``delivery_kernel``
-bit for bit on integer weights (no row fired, one sample, 33 samples, 64
-in float64, tiles of 8 to 256, per-sample weights and arrival planes, and
-weights of -0.0), and a 3-sample ``ParameterSweep`` on the card gives the
-CPU's counters.
+bit for bit on integer weights (no row fired, one sample, 16, 17, 33, 64
+and 65 samples, tiles of 8 to 256, per-sample weights and arrival planes,
+weights of -0.0, blocks with one live row in 64, and every row listed),
+within 1e-12 on real float64 weights and the same bits on two launches,
+and a 3-sample ``ParameterSweep`` on the card gives the CPU's counters.
 
 Card only (``python -m pytest tests/test_torch_cuda.py -m cuda
 --noconftest``); the tests skip where there is no card.
@@ -438,29 +439,47 @@ def _same_bits(x, y):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", [
     "none", "one_sample", "three", "b33", "b64_f64", "tiny", "n40",
-    "per_sample", "per_sample_counts", "negative_zero",
+    "per_sample", "per_sample_counts", "negative_zero", "sparse",
+    "all_rows", "b16_f64", "b17_f64", "b65", "tile8", "tile64", "f64_real",
 ])
 def test_delivery_batch_kernel_matches_plain(cuda, case):
+    """The kernel reads the live rows (``build_live_rows``, or every row
+    for ``all_rows``); ``sparse`` keeps one row in 64 of each block, as the
+    full chip has; ``b16_f64`` / ``b17_f64`` / ``b65`` fill a sample pass
+    and spill past it; ``tile8`` / ``tile64`` take the plain-load arrival
+    path; ``f64_real`` has seeded real weights."""
     from sanafe_tpu_torch.compile import compile_chip
     from sanafe_tpu_torch.ops.delivery import (
+        build_live_rows,
         delivery_batch_kernel,
         delivery_batch_plain,
         delivery_kernel,
+        every_row_live,
         pack_arrival_plane,
     )
     from sanafe_tpu_torch.ops.step import build_block_delivery
 
-    dtype = torch.float64 if case == "b64_f64" else torch.float32
+    dtype = torch.float64 if "f64" in case else torch.float32
     shape = {"tiny": dict(cores=4, neurons_per_core=2,
                           messages_per_neuron=2, spikes_per_message=2),
-             "n40": dict(cores=5, neurons_per_core=8)}.get(
-        case, dict(cores=16, neurons_per_core=128))
+             "n40": dict(cores=5, neurons_per_core=8)}
+    shape["tile8"], shape["tile64"] = shape["tiny"], shape["n40"]
+    shape = shape.get(case, dict(cores=16, neurons_per_core=128))
     compiled = compile_chip(*random_chip(st, n_log_potential=0, **shape))
     n = compiled.n_neurons
     blk = build_block_delivery(compiled, dtype, cuda)
-    plane = pack_arrival_plane(blk.counts)
+    counts = blk.counts
+    if case == "sparse":
+        # one row in 64 of each block keeps its edges
+        rng = np.random.default_rng(8)
+        keep = torch.from_numpy(rng.random(tuple(counts.shape[:2])) < 1 / 64)
+        keep = keep.to(cuda)[:, :, None]
+        counts = counts * keep.to(torch.int8)
+        blk.weights *= keep.to(dtype)
+    plane = pack_arrival_plane(counts)
     count = {"none": 4, "one_sample": 1, "three": 3, "b33": 33,
-             "b64_f64": 64}.get(case, 5)
+             "b64_f64": 64, "sparse": 16, "all_rows": 16, "b16_f64": 16,
+             "b17_f64": 17, "b65": 65, "tile8": 16, "tile64": 17}.get(case, 5)
     patterns = ["none"] * count if case == "none" else [
         BATCH_PATTERNS[(b + 1) % len(BATCH_PATTERNS)] for b in range(count)]
     x = _sample_planes(blk, n, patterns, dtype, cuda)
@@ -475,7 +494,7 @@ def test_delivery_batch_kernel_matches_plain(cuda, case):
             (torch.arange(blk.tile, device=cuda) % (b + 2) == 0)
             for b in range(count)])
         arrivals = torch.stack([
-            pack_arrival_plane(blk.counts * keep[b][None, :, None].to(
+            pack_arrival_plane(counts * keep[b][None, :, None].to(
                 torch.int8)) for b in range(count)])
     if case == "negative_zero":
         # seeded integer weights with -0.0 cells: sums that reach zero stay
@@ -484,24 +503,45 @@ def test_delivery_batch_kernel_matches_plain(cuda, case):
         values = rng.choice([-2.0, -1.0, -0.0, 0.0, 1.0, 2.0],
                             size=tuple(blk.weights.shape))
         weights = torch.from_numpy(values).to(device=cuda, dtype=dtype)
+    if case == "f64_real":
+        rng = np.random.default_rng(6)
+        values = rng.uniform(-1, 1, size=tuple(blk.weights.shape))
+        weights = torch.from_numpy(values).to(device=cuda, dtype=dtype) * (
+            counts > 0)
+    live = (every_row_live(weights.shape[-3], blk.tile, cuda)
+            if case == "all_rows" else build_live_rows(weights, arrivals))
+    if case == "sparse":
+        assert live.count * 32 < weights.shape[-3] * blk.tile
     args = (weights, arrivals, blk.src_tiles, blk.dest_offsets,
-            blk.max_blocks_per_dest)
+            blk.max_blocks_per_dest, live)
     before = delivery_batch_kernel.launches
     cur, arrived = delivery_batch_kernel(x, *args)
     ref_cur, ref_arrived = delivery_batch_plain(x, *args)
+    again, _ = delivery_batch_kernel(x, *args)
     torch.cuda.synchronize()
-    assert delivery_batch_kernel.launches == before + 1
+    assert delivery_batch_kernel.launches == before + 2
     assert cur.shape == (count, blk.n_tiles, blk.tile)
     assert arrived.dtype == torch.bool
-    assert _same_bits(cur, ref_cur) and torch.equal(arrived, ref_arrived)
+    assert _same_bits(cur, again)
+    assert torch.equal(arrived, ref_arrived)
+    if case == "f64_real":
+        # real weights: the plain version's products group otherwise
+        torch.testing.assert_close(cur, ref_cur, rtol=1e-12, atol=1e-12)
+    else:
+        assert _same_bits(cur, ref_cur)
     for b in range(count):
         w_b = weights[b] if weights.dim() == 4 else weights
         a_b = arrivals[b] if arrivals.dim() == 4 else arrivals
         one_cur, one_arrived = delivery_kernel(
             x[b].contiguous(), w_b.contiguous(), a_b.contiguous(),
             blk.src_tiles, blk.dest_offsets, blk.max_blocks_per_dest)
-        assert _same_bits(cur[b], one_cur), b
         assert torch.equal(arrived[b], one_arrived), b
+        if case == "f64_real":
+            # delivery_kernel adds 8 warps' partial sums
+            torch.testing.assert_close(cur[b], one_cur, rtol=1e-12,
+                                       atol=1e-12)
+        else:
+            assert _same_bits(cur[b], one_cur), b
     if case == "none":
         assert not arrived.any() and not cur.any()
     else:
