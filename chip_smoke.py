@@ -152,7 +152,32 @@ own line:
    bound (the larger of the live rows some
    sample fired, their weights and arrival words, over 3.35 TB/s and one
    float add a cell a sample over 33.5 T adds/s), with the dense figure
-   (every fired row of every active block) beside it.
+   (every fired row of every active block) beside it;
+16. scale-out over torch.distributed: the references on one chip first
+   (full: 10 warm steps, 200 simple, 200 detailed with the spike trace; the
+   4096-neuron chip in float64 with the perf trace and in float32 under the
+   device sweep, 200 detailed steps each), then two spawned processes, gloo
+   ranks both on the one card, each calling SpikingChip.sim(mesh=...) on
+   its own chip: full at full width (each rank holding its half of the
+   blocks): rank 0's spikes.csv byte-identical to one chip's, counters
+   equal, energies within 1e-6 relative, the delivery kernel launched in
+   each rank's process on every step and held to delivery_packed_plain on
+   the rank's own blocks at step 50, with the steps/s, each rank's kernel
+   ms and the exchange's ms a step; the float64 perf.csv byte-identical;
+   the device sweep's sim_time equal, the merge kernel launched on rank 0
+   only; phase 15's 16-sample sweep split over the two ranks, equal to
+   phase 15's sweep, with its samples x steps/s beside phase 15's; then one
+   NCCL rank on the same 4096-neuron runs, equal to one chip's. A rank that
+   fails or outlives its timeout fails the phase; the plain deliveries
+   raise inside the ranks;
+17. sweeps of plugin-soma chips: 4 thresholds of the full-width
+   Hodgkin-Huxley chip, 20 steps, through the batched delivery kernel (one
+   launch a step), with samples x steps/s beside phase 13's single chip
+   (the HH somas ignore the LIF threshold, so the samples are equal); the
+   4096-neuron HH chip (stride 32) with 3 samples of thresholds and
+   stimulation currents, 20 steps, each sample equal to a single chip on
+   the card started from the same state (counters exact, energies and
+   sim_time within 1e-6 relative).
 
 It prints the kernels' JSON record and the card's name and power limit on
 the lines before the last, and as the last line {"ok": true, "device":
@@ -221,6 +246,16 @@ PARAM_MID_SCALES = (0.5, 1.0, 2.0, 4.0)  # mid's threshold sweep
 PARAM_COST_SCALES = (1.0, 2.0, 10.0)  # mid's soma_energy_update sweep
 BATCH_CHECKS = (1, 3, 16, 33, 64)
 BATCH_TIMINGS = (1, 4, 16, 64)
+MESH_WORLD = 2  # phase 16: gloo ranks on the one card
+MESH_SIMPLE_STEPS = 200
+MESH_DETAILED_STEPS = 200
+MESH_MID_STEPS = 200
+MESH_CHECK_STEP = 50  # the ranks' delivery kernels held to their plain version
+MESH_JOIN_S = 300  # a rank still alive after this fails the phase
+HH_SWEEP_SAMPLES = 4  # phase 17: the full HH chip's sweep
+HH_SWEEP_STEPS = 20
+HH_MID_SCALES = (0.5, 1.0, 1.5)  # mid HH: thresholds and currents x these
+HH_MID_STEPS_SWEEP = 20
 # arch_hh.yaml's soma costs (tests/golden_ref/fixtures/arch_hh.yaml)
 HH_COSTS = {
     "energy_access_neuron": 20.0e-12, "latency_access_neuron": 3.0e-9,
@@ -1274,9 +1309,9 @@ def device_ops(prof) -> int:
                if evt.device_type == DeviceType.CUDA)
 
 
-def hh_phase(st, cuda, card) -> None:
+def hh_phase(st, cuda, card) -> dict:
     """Phase 13: Hodgkin-Huxley plugin somas at full width (module
-    docstring)."""
+    docstring). Returns the full chip's steps/s."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1377,6 +1412,7 @@ def hh_phase(st, cuda, card) -> None:
           f"{err.max()} * max(1,|v|) (bar {V_TOL}), energies within "
           f"{REL_TOL}; card {a['wall']} s, cpu {b['wall']} s; launches "
           f"{a['launches']} OK | {card}", flush=True)
+    return {"steps_s": HH_STEPS / wall}
 
 
 def last_digit_close(got: str, want: str) -> bool:
@@ -1823,7 +1859,8 @@ def sweep_phase(st, cuda, card, full_step50, single_full) -> dict:
     """Phase 15: ParameterSweep on the card (module docstring).
     ``full_step50`` is full's fired plane at step 50 (phase 8),
     ``single_full`` phase 6's steps/s and busy share of one full chip.
-    Returns the batched kernel's entry of the kernels line."""
+    Returns the batched kernel's entry of the kernels line, and the
+    sweep's result and samples x steps/s (``sweep``) for phase 16."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2084,8 +2121,558 @@ def sweep_phase(st, cuda, card, full_step50, single_full) -> dict:
     return {"launches": counts["delivery_batch_kernel"],
             "max_abs_err": max_err, "ms": times[PARAM_SAMPLES],
             "plain_ms": plain_ms, "bound_ms": b16["ms"],
-            "bound_by": b16["by"], "library_ms": library_ms}
+            "bound_by": b16["by"], "library_ms": library_ms,
+            "sweep": {"out": out, "rate": rate}}
 
+
+
+# --- phase 16: scale-out over torch.distributed ----------------------------
+
+def sync(device) -> None:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def summary(result: dict) -> dict:
+    """The counters, energies and sim_time of a sim() result."""
+    keep = COUNTERS + ("sim_time", "energy", "device_engine")
+    return {key: result[key] for key in keep}
+
+
+def same_counters(a: dict, b: dict, name: str, rel: float) -> None:
+    """Counters exact; energies and sim_time within ``rel`` relative."""
+    for key in COUNTERS:
+        check(a[key] == b[key], f"{name}: {key} {a[key]} vs {b[key]}")
+    pairs = [(a["energy"][k], b["energy"][k]) for k in b["energy"]]
+    pairs.append((a["sim_time"], b["sim_time"]))
+    for x, y in pairs:
+        check(abs(x - y) <= rel * max(abs(y), 1e-30),
+              f"{name}: energy or sim_time {x} vs {y}")
+
+
+class RefusedPlain:
+    """While active on a CUDA device, the delivery kernels' plain versions
+    raise: a sharded program on the card delivers through its kernels."""
+
+    def __init__(self, device):
+        import torch
+
+        self.on = torch.device(device).type == "cuda"
+
+    def __enter__(self):
+        from sanafe_tpu_torch.ops import delivery, step
+
+        def refuse(*args, **kwargs):
+            raise CheckFailed("a plain delivery ran on the card's mesh")
+
+        self.saved = (step.delivery_plain, delivery.delivery_packed_plain,
+                      delivery.delivery_batch_plain)
+        if self.on:
+            step.delivery_plain = refuse
+            delivery.delivery_packed_plain = refuse
+            delivery.delivery_batch_plain = refuse
+        return self
+
+    def __exit__(self, *exc):
+        from sanafe_tpu_torch.ops import delivery, step
+
+        (step.delivery_plain, delivery.delivery_packed_plain,
+         delivery.delivery_batch_plain) = self.saved
+        return False
+
+
+def mesh_full(st, mesh, dev, out: Path, tag: str, ctx: dict) -> dict:
+    """Rank case: the full chip on the mesh, 10 warm steps, then
+    MESH_SIMPLE_STEPS simple and MESH_DETAILED_STEPS detailed with the spike
+    trace (rank 0 writes it); then this rank's delivery kernel against its
+    plain version on its own blocks at step MESH_CHECK_STEP, and its ms."""
+    import torch
+
+    from sanafe_tpu_torch.ops import delivery
+    from sanafe_tpu_torch.ops.scan import run_scan
+    from sanafe_tpu_torch.ops.step import make_device_program
+    from sanafe_tpu_torch.parallel import pad_compiled
+
+    arch, net = random_chip(st, **FULL)
+    chip = st.SpikingChip(arch, device=dev)
+    start = time.perf_counter()
+    chip.load(net)
+    load_s = time.perf_counter() - start
+    ctx["full_chip"] = chip
+    start = time.perf_counter()
+    warm = chip.sim(10, heartbeat=0, mesh=mesh)
+    sync(dev)
+    build_s = time.perf_counter() - start
+    reset_counts()
+    exchange = (chip.exchange_wall, chip.exchanges)
+    start = time.perf_counter()
+    simple = chip.sim(MESH_SIMPLE_STEPS, heartbeat=0)
+    sync(dev)
+    t_simple = time.perf_counter() - start
+    exchange = (chip.exchange_wall - exchange[0],
+                chip.exchanges - exchange[1])
+    start = time.perf_counter()
+    det = chip.sim(MESH_DETAILED_STEPS, timing_model="detailed",
+                   heartbeat=0, spike_trace=out / f"{tag}_full_spikes.csv")
+    sync(dev)
+    t_det = time.perf_counter() - start
+    chip.close()
+    counts = read_counts()
+    # this rank's blocks, at the fired pattern of step MESH_CHECK_STEP
+    prog = make_device_program(pad_compiled(chip.compiled, mesh.size()), dev,
+                               torch.float32, record_fired_axons=True,
+                               use_kernel=True, mesh=mesh)
+    _, o = run_scan(prog, prog.init_state(), 1, MESH_CHECK_STEP)
+    blk = prog.block
+    bits = o["masks_packed"][-1, 0].cpu().numpy()
+    fired = np.zeros(blk.n_pad, dtype=np.float32)
+    fired[:prog.compiled.n_neurons] = np.unpackbits(bits)[
+        :prog.compiled.n_neurons]
+    x = torch.from_numpy(fired).to(dev).view(blk.n_tiles, blk.tile)
+    args = (x, blk.weights, blk.arrivals, blk.src_tiles, blk.dest_offsets,
+            blk.max_blocks_per_dest)
+    cur, arrived = delivery.delivery_kernel(*args)
+    ref_cur, ref_arrived = ctx["packed_plain"](*args)
+    check(torch.equal(cur, ref_cur) and torch.equal(arrived, ref_arrived),
+          f"{tag} rank {mesh.get_local_rank()}: the delivery kernel differs "
+          f"from its plain version on the rank's blocks")
+    # one rank at a time, the others waiting in a collective, so that no
+    # other process shares the card while a rank is timed
+    import torch.distributed as dist
+
+    kernel_ms = None
+    for turn in range(mesh.size()):
+        if turn == mesh.get_local_rank() and torch.device(dev).type == "cuda":
+            kernel_ms = cuda_ms(lambda: delivery.delivery_kernel(*args), 20)
+        dist.all_reduce(torch.zeros(1, device=dev), group=mesh.get_group())
+    owned = torch.nonzero(blk.dest_offsets[1:] > blk.dest_offsets[:-1])
+    result = {
+        "warm": summary(warm), "simple": summary(simple),
+        "detailed": summary(det), "t_simple": t_simple, "t_det": t_det,
+        "load_s": load_s, "build_s": build_s,
+        "exchange_ms": exchange[0] / MESH_SIMPLE_STEPS * 1e3,
+        "exchanges_a_step": exchange[1] / MESH_SIMPLE_STEPS,
+        "launches": counts, "kernel_ms": kernel_ms,
+        "max_abs_err": float((cur - ref_cur).abs().max()),
+        "fired_step": int(fired.sum()), "n_pad": prog.compiled.n_neurons,
+        "blocks": blk.weights.shape[0], "blocks_total": prog.blocks_total,
+        "tiles": (int(owned.min()), int(owned.max()) + 1)
+        if len(owned) else None,
+        "lo_hi": (prog.shard.lo, prog.shard.hi),
+    }
+    del prog, o, blk, x, args, cur, arrived, ref_cur, ref_arrived
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+    return result
+
+
+def mesh_mid_perf(st, mesh, dev, out: Path, tag: str, ctx: dict) -> dict:
+    """Rank case: the 4096-neuron chip in float64, MESH_MID_STEPS detailed
+    steps with the perf trace (rank 0 writes it)."""
+    import torch
+
+    arch, net = random_chip(st, **MID)
+    chip = st.SpikingChip(arch, device=dev, dtype=torch.float64)
+    chip.load(net)
+    reset_counts()
+    result = chip.sim(MESH_MID_STEPS, timing_model="detailed", heartbeat=0,
+                      perf_trace=out / f"{tag}_mid_perf.csv", mesh=mesh)
+    sync(dev)
+    chip.close()
+    return dict(summary(result), launches=read_counts())
+
+
+def mesh_mid_sweep(st, mesh, dev, out: Path, tag: str, ctx: dict) -> dict:
+    """Rank case: the 4096-neuron chip in float32, MESH_MID_STEPS detailed
+    steps under the device sweep (rank 0 sweeps the gathered masks)."""
+    arch, net = random_chip(st, **MID)
+    chip = st.SpikingChip(arch, device=dev)
+    chip.load(net)
+    reset_counts()
+    result = chip.sim(MESH_MID_STEPS, timing_model="detailed", heartbeat=0,
+                      device_sweep=True, mesh=mesh)
+    sync(dev)
+    return dict(summary(result), launches=read_counts(),
+                host_steps=chip.sweep_host_steps)
+
+
+def mesh_sweep16(st, mesh, dev, out: Path, tag: str, ctx: dict) -> dict:
+    """Rank case: phase 15's sweep of full, its samples split over the
+    mesh (reuses the full chip of ``mesh_full``)."""
+    chip = ctx["full_chip"]
+    base = float(chip.compiled.threshold[0])
+    values = np.linspace(0.5, 4.0, PARAM_SAMPLES) * base
+    over = st.expand_group_values(chip.compiled, "threshold",
+                                  {"pop": values})
+    sweep = st.ParameterSweep(chip, {"threshold": over}, mesh=mesh)
+    sweep.run(2)  # warm
+    sync(dev)
+    reset_counts()
+    start = time.perf_counter()
+    result = sweep.run(PARAM_STEPS)
+    sync(dev)
+    wall = time.perf_counter() - start
+    return {"out": result, "wall": wall, "launches": read_counts(),
+            "samples": sweep.samples}
+
+
+def same_bits_share(a: dict, b: dict) -> float:
+    """The share of the energy and sim_time values two sweeps' results
+    hold bit for bit."""
+    pairs = [(a["energy"][k], b["energy"][k]) for k in b["energy"]]
+    pairs.append((a["sim_time"], b["sim_time"]))
+    same = sum(int(np.sum(np.asarray(x) == np.asarray(y))) for x, y in pairs)
+    return same / sum(np.asarray(y).size for _, y in pairs)
+
+
+MESH_CASES = {"full": mesh_full, "mid_perf": mesh_mid_perf,
+              "mid_sweep": mesh_mid_sweep, "sweep16": mesh_sweep16}
+
+
+# the settings a rank takes from the process that starts it
+MESH_SETTINGS = ("FULL", "MID", "MESH_SIMPLE_STEPS", "MESH_DETAILED_STEPS",
+                 "MESH_MID_STEPS", "MESH_CHECK_STEP", "MESH_JOIN_S",
+                 "PARAM_SAMPLES", "PARAM_STEPS")
+
+
+def rank_main(rank: int, world: int, backend: str, store: str, out: str,
+              device: str, cases: tuple, settings: dict) -> None:
+    """One rank of phase 16 (a spawned process): takes the starting
+    process's ``settings`` (MESH_SETTINGS), joins the process group through
+    the FileStore ``store``, builds a one-dimensional mesh and runs
+    ``cases`` (MESH_CASES) in order; writes its results to
+    ``out/<backend><world>_rank<rank>.pkl``."""
+    import pickle
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    import sanafe_tpu_torch as st
+    from sanafe_tpu_torch.ops import delivery
+
+    globals().update(settings)
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", dev.index or 0)
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(backend, store=dist.FileStore(store, world),
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=MESH_JOIN_S))
+    try:
+        mesh = init_device_mesh(dev.type, (world,),
+                                mesh_dim_names=("cores",))
+        tag = f"{backend}{world}"
+        ctx = {"packed_plain": delivery.delivery_packed_plain}
+        results = {}
+        with RefusedPlain(dev):
+            for case in cases:
+                results[case] = MESH_CASES[case](st, mesh, dev, Path(out),
+                                                 tag, ctx)
+        ctx.clear()
+        (Path(out) / f"{tag}_rank{rank}.pkl").write_bytes(
+            pickle.dumps(results))
+    finally:
+        dist.destroy_process_group()
+
+
+def launch_ranks(world: int, backend: str, device, cases: tuple,
+                 out: Path) -> list:
+    """Run ``rank_main`` on ``world`` spawned processes; fails if a rank
+    fails or any is alive after MESH_JOIN_S seconds (the others are killed
+    first). Returns each rank's results and the wall seconds."""
+    import pickle
+
+    import torch
+
+    mp = torch.multiprocessing.get_context("spawn")
+    store = out / f"store_{backend}{world}"
+    procs = [mp.Process(target=rank_main,
+                        args=(r, world, backend, str(store), str(out),
+                              str(device), cases,
+                              {k: globals()[k] for k in MESH_SETTINGS}))
+             for r in range(world)]
+    start = time.perf_counter()
+    for p in procs:
+        p.start()
+    failed = None
+    while time.perf_counter() - start < MESH_JOIN_S:
+        codes = [p.exitcode for p in procs]
+        if any(code not in (None, 0) for code in codes):
+            failed = f"a rank exited with {codes}"
+            break
+        if all(code == 0 for code in codes):
+            break
+        time.sleep(0.2)
+    else:
+        failed = f"ranks alive after {MESH_JOIN_S} s"
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+        p.join(30)
+    wall = time.perf_counter() - start
+    check(failed is None, f"{backend} mesh of {world}: {failed}")
+    tag = f"{backend}{world}"
+    return [pickle.loads((out / f"{tag}_rank{r}.pkl").read_bytes())
+            for r in range(world)], wall
+
+
+def mesh_phase(st, device, card, tmp: Path, full_sweep: dict) -> dict:
+    """Phase 16 (module docstring): the references on one chip, then the
+    ranks. ``full_sweep`` is phase 15's unsharded sweep (its result and
+    samples x steps/s)."""
+    import torch
+
+    # --- 16a. one chip: the references ---
+    refs = {}
+    arch, net = random_chip(st, **FULL)
+    chip = st.SpikingChip(arch, device=device)
+    chip.load(net)
+    refs["warm"] = summary(chip.sim(10, heartbeat=0))
+    sync(device)
+    start = time.perf_counter()
+    refs["simple"] = summary(chip.sim(MESH_SIMPLE_STEPS, heartbeat=0))
+    sync(device)
+    refs["t_simple"] = time.perf_counter() - start
+    start = time.perf_counter()
+    refs["detailed"] = summary(chip.sim(
+        MESH_DETAILED_STEPS, timing_model="detailed", heartbeat=0,
+        spike_trace=tmp / "single_full_spikes.csv"))
+    sync(device)
+    refs["t_det"] = time.perf_counter() - start
+    chip.close()
+    del chip
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    refs["mid_perf"] = mesh_mid_perf(st, None, device, tmp, "single", {})
+    refs["mid_sweep"] = mesh_mid_sweep(st, None, device, tmp, "single", {})
+    check(refs["mid_sweep"]["launches"]["merge_kernel"] > 0
+          or torch.device(device).type != "cuda",
+          "single mid device sweep: no merge kernel")
+
+    # --- 16b. MESH_WORLD gloo ranks on the one card ---
+    gloo, gloo_wall = launch_ranks(
+        MESH_WORLD, "gloo", device,
+        ("full", "mid_perf", "mid_sweep", "sweep16"), tmp)
+    single_bytes = (tmp / "single_full_spikes.csv").read_bytes()
+    mesh_bytes = (tmp / f"gloo{MESH_WORLD}_full_spikes.csv").read_bytes()
+    check(mesh_bytes == single_bytes and mesh_bytes.count(b"\n") > 1,
+          "full on the mesh: rank 0's spikes.csv differs from one chip's")
+    on_card = torch.device(device).type == "cuda"
+    for rank, res in enumerate(gloo):
+        full = res["full"]
+        for key in ("warm", "simple", "detailed"):
+            same_counters(full[key], refs[key], f"full {key} rank {rank}",
+                          REL_TOL)
+            check(full[key]["device_engine"] == "scan",
+                  f"full on the mesh ran on {full[key]['device_engine']}")
+        check(full["detailed"]["sim_time"] == refs["detailed"]["sim_time"],
+              "full on the mesh: detailed sim_time differs")
+        check(full["launches"]["delivery_kernel"] > 0 or not on_card,
+              f"full rank {rank}: no delivery kernel in its process")
+        check(full["launches"]["delivery_kernel"]
+              == (MESH_SIMPLE_STEPS + MESH_DETAILED_STEPS) * on_card,
+              f"full rank {rank}: launches {full['launches']}")
+        check(full["max_abs_err"] == 0.0, f"full rank {rank}: kernel error")
+        perf = res["mid_perf"]
+        same_counters(perf, refs["mid_perf"], f"mid f64 rank {rank}", 0.0)
+        sweep = res["mid_sweep"]
+        same_counters(sweep, refs["mid_sweep"], f"mid sweep rank {rank}",
+                      0.0)
+        check(sweep["host_steps"] == (refs["mid_sweep"]["host_steps"]
+                                      if rank == 0 else 0),
+              f"mid sweep rank {rank}: host steps {sweep['host_steps']}")
+        check((sweep["launches"]["merge_kernel"] > 0) == (
+            rank == 0 and on_card),
+              f"mid sweep rank {rank}: merge launches {sweep['launches']}")
+        s16 = res["sweep16"]
+        check(s16["launches"]["delivery_batch_kernel"]
+              == PARAM_STEPS * on_card,
+              f"sweep rank {rank}: launches {s16['launches']}")
+        # counters exact; a rank's samples sum their energies over [B/2, n]
+        # where phase 15 summed [B, n]: the reduction may order them
+        # differently, within the float32 bar
+        for i in range(PARAM_SAMPLES):
+            check_sample(s16["out"], i, {
+                **{key: int(full_sweep["out"][key][i]) for key in COUNTERS},
+                "energy": {key: float(value[i]) for key, value in
+                           full_sweep["out"]["energy"].items()},
+                "sim_time": float(full_sweep["out"]["sim_time"][i]),
+            }, f"sharded sweep rank {rank} sample {i}")
+    perf_single = (tmp / "single_mid_perf.csv").read_bytes()
+    check((tmp / f"gloo{MESH_WORLD}_mid_perf.csv").read_bytes()
+          == perf_single and perf_single.count(b"\n") == MESH_MID_STEPS + 1,
+          "mid float64 on the mesh: perf.csv differs from one chip's")
+    full0 = gloo[0]["full"]
+    rates = {
+        "simple_steps_s": MESH_SIMPLE_STEPS / full0["t_simple"],
+        "detailed_steps_s": MESH_DETAILED_STEPS / full0["t_det"],
+        "single_simple_steps_s": MESH_SIMPLE_STEPS / refs["t_simple"],
+        "single_detailed_steps_s": MESH_DETAILED_STEPS / refs["t_det"],
+    }
+    print(f"mesh_full: full n={full0['n_pad']} on {MESH_WORLD} gloo ranks "
+          f"on {device} (ranks' neurons "
+          f"{[r['full']['lo_hi'] for r in gloo]}, destination tiles "
+          f"{[r['full']['tiles'] for r in gloo]}, blocks "
+          f"{[r['full']['blocks'] for r in gloo]} of "
+          f"{full0['blocks_total']}): simple {MESH_SIMPLE_STEPS} steps "
+          f"{rates['simple_steps_s']} steps/s (one chip "
+          f"{rates['single_simple_steps_s']}), detailed "
+          f"{MESH_DETAILED_STEPS} steps with the spike trace "
+          f"{rates['detailed_steps_s']} steps/s (one chip "
+          f"{rates['single_detailed_steps_s']}); exchange ms a step "
+          f"{[r['full']['exchange_ms'] for r in gloo]} "
+          f"({full0['exchanges_a_step']} collectives a step); delivery "
+          f"kernel ms on each rank's blocks at step {MESH_CHECK_STEP}, "
+          f"timed one rank at a time "
+          f"({full0['fired_step']} fired) "
+          f"{[r['full']['kernel_ms'] for r in gloo]}, equal to "
+          f"delivery_packed_plain; launches by rank "
+          f"{[r['full']['launches'] for r in gloo]}; rank 0's spikes.csv "
+          f"({len(mesh_bytes)} B) byte-identical to one chip's, counters "
+          f"equal, energies within {REL_TOL}; load s "
+          f"{[r['full']['load_s'] for r in gloo]}, program build s "
+          f"{[r['full']['build_s'] for r in gloo]}; ranks' wall "
+          f"{gloo_wall} s | {card}", flush=True)
+    print(f"mesh_mid: n={MID['cores'] * MID['neurons_per_core']} on "
+          f"{MESH_WORLD} gloo ranks: float64 "
+          f"{MESH_MID_STEPS} steps detailed, perf.csv ({len(perf_single)} B) "
+          f"byte-identical to one chip's; float32 device sweep sim_time "
+          f"{gloo[0]['mid_sweep']['sim_time']} equal to one chip's, merge "
+          f"kernel launches by rank "
+          f"{[r['mid_sweep']['launches']['merge_kernel'] for r in gloo]} "
+          f"OK | {card}", flush=True)
+    s16 = gloo[0]["sweep16"]
+    rate = PARAM_SAMPLES * PARAM_STEPS / max(r["sweep16"]["wall"]
+                                             for r in gloo)
+    print(f"mesh_sweep: full {PARAM_SAMPLES}-sample threshold sweep, "
+          f"{PARAM_STEPS} steps, samples split "
+          f"{[r['sweep16']['samples'] for r in gloo]} over {MESH_WORLD} "
+          f"gloo ranks: {rate} samples x steps/s (phase 15, one process: "
+          f"{full_sweep['rate']}); batched-kernel launches by rank "
+          f"{[r['sweep16']['launches']['delivery_batch_kernel'] for r in gloo]}"
+          f"; equal to phase 15's sweep (counters exact, energies and "
+          f"sim_time within {REL_TOL}; energies bit-equal in "
+          f"{same_bits_share(s16['out'], full_sweep['out'])} of the sample "
+          f"values) OK | {card}", flush=True)
+
+    # --- 16c. one NCCL rank, the same mid runs ---
+    if on_card:
+        nccl, nccl_wall = launch_ranks(1, "nccl", device,
+                                       ("mid_perf", "mid_sweep"), tmp)
+        same_counters(nccl[0]["mid_perf"], refs["mid_perf"], "nccl mid f64",
+                      0.0)
+        same_counters(nccl[0]["mid_sweep"], refs["mid_sweep"],
+                      "nccl mid sweep", 0.0)
+        check((tmp / "nccl1_mid_perf.csv").read_bytes() == perf_single,
+              "nccl mesh of one: perf.csv differs from one chip's")
+        check(nccl[0]["mid_sweep"]["launches"]["merge_kernel"] > 0,
+              "nccl mesh of one: no merge kernel")
+        print(f"mesh_nccl: one NCCL rank, mid float64 perf.csv and the "
+              f"float32 device sweep equal to one chip's (ranks' wall "
+              f"{nccl_wall} s) OK | {card}", flush=True)
+    return {"launches": [r["full"]["launches"] for r in gloo],
+            "rates": rates}
+
+
+# --- phase 17: sweeps of plugin-soma chips ----------------------------------
+
+def plugin_sweep_phase(st, device, card, hh_single: dict) -> None:
+    """Phase 17 (module docstring). ``hh_single`` is phase 13's full HH
+    chip (its steps/s)."""
+    import torch
+
+    from sanafe_tpu_torch.ops.step import initial_state
+
+    on_card = torch.device(device).type == "cuda"
+    # --- 17a. the full-width HH chip, HH_SWEEP_SAMPLES thresholds ---
+    arch, net = hh_chip(st, **FULL)
+    chip = st.SpikingChip(arch, device=device)
+    chip.load(net)
+    values = np.linspace(32.0, 128.0, HH_SWEEP_SAMPLES)
+    sweep = st.ParameterSweep(chip, {"threshold": st.expand_group_values(
+        chip.compiled, "threshold", {"pop": values})})
+    check(sweep.prog.kernel_delivery == on_card, "full HH sweep: program")
+    sweep.run(2)  # warm
+    sync(device)
+    with RefusedPlain(device):
+        reset_counts()
+        start = time.perf_counter()
+        out = sweep.run(HH_SWEEP_STEPS)
+        sync(device)
+        wall = time.perf_counter() - start
+    counts = read_counts()
+    check(counts["delivery_batch_kernel"] == HH_SWEEP_STEPS * on_card
+          and counts["delivery_kernel"] == 0,
+          f"full HH sweep: launches {counts}")
+    # thresholds are LIF parameters: the HH somas ignore them
+    for key in COUNTERS:
+        check(len(set(out[key].tolist())) == 1 and int(out[key][0]) > 0,
+              f"full HH sweep: {key} {out[key].tolist()}")
+    check(bool(np.all(np.isfinite(out["energy"]["total"])))
+          and bool(np.all(out["sim_time"] > 0)),
+          "full HH sweep: energies or sim_time")
+    rate = HH_SWEEP_SAMPLES * HH_SWEEP_STEPS / wall
+    print(f"hh_sweep: full HH n={chip.compiled.n_neurons} (shared stride "
+          f"{chip.compiled.plugin_shared_max_stride}) float32, "
+          f"{HH_SWEEP_SAMPLES} thresholds, {HH_SWEEP_STEPS} steps simple: "
+          f"{rate} samples x steps/s ({HH_SWEEP_STEPS / wall} swept steps/s; "
+          f"one chip, phase 13: {hh_single['steps_s']} steps/s); fired a "
+          f"sample {int(out['neurons_fired'][0])}; launches {counts} | "
+          f"{card}", flush=True)
+    del sweep, chip
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # --- 17b. mid HH: thresholds and currents, each sample a single chip ---
+    arch, net = hh_chip(st, **MID)
+    chip = st.SpikingChip(arch, device=device)
+    chip.load(net)
+    compiled = chip.compiled
+    current = compiled.plugin_params["hodgkin_huxley"]["current"]
+    scales = np.asarray(HH_MID_SCALES)
+    overrides = {
+        "threshold": st.expand_group_values(
+            compiled, "threshold", {"pop": 64.0 * scales}),
+        "plugin_hodgkin_huxley_current": current[None, :] * scales[:, None],
+    }
+    with RefusedPlain(device):
+        reset_counts()
+        out = st.ParameterSweep(chip, overrides).run(HH_MID_STEPS_SWEEP)
+        sync(device)
+    counts = read_counts()
+    check(counts["delivery_batch_kernel"] == HH_MID_STEPS_SWEEP * on_card,
+          f"mid HH sweep: launches {counts}")
+    # the sweep starts every sample from the compiled chip's state (its
+    # shared units pre-advanced with the compiled currents)
+    start_state = {key: value.cpu().numpy() for key, value in initial_state(
+        compiled, chip.dtype, "cpu").items()}
+    for i, scale in enumerate(scales):
+        arch, net = hh_chip(st, **MID)
+        one = st.SpikingChip(arch, device=device)
+        one.load(net)
+        slots = one.compiled.groups["pop"]
+        for offset, neuron in enumerate(one.mapped_neuron_groups["pop"]):
+            neuron.set_attributes(
+                {"current": float(current[slots[offset]] * scale)})
+        one.load_state_arrays(start_state)
+        ref = one.sim(HH_MID_STEPS_SWEEP, timing_model="simple", heartbeat=0)
+        check_sample(out, i, ref, f"mid HH sample {i}")
+    check(len(set(out["neurons_fired"].tolist())) > 1,
+          f"mid HH sweep: samples' activity {out['neurons_fired'].tolist()}")
+    print(f"hh_sweep_mid: n={compiled.n_neurons} (shared stride "
+          f"{compiled.plugin_shared_max_stride}) float32, {len(scales)} "
+          f"samples (thresholds and currents x {scales.tolist()}), "
+          f"{HH_MID_STEPS_SWEEP} steps: fired "
+          f"{out['neurons_fired'].tolist()}; every sample equals a "
+          f"SpikingChip(device='{device}') run (counters exact, energies "
+          f"and sim_time within {REL_TOL}); launches {counts} OK | {card}",
+          flush=True)
 
 def main() -> int:
     import torch
@@ -2532,28 +3119,39 @@ def run(tmp: Path) -> int:
     dense = dense_weights(blk)
     row = x.reshape(1, -1)
     library_ms = cuda_ms(lambda: torch.mm(row, dense), 20)
+    # the sparse product reads the 260k edge cells, not the dense matrix
+    csr = csr_weights(blk)
+    col = row.t().contiguous()
+    sparse_ms = queued_ms(lambda: torch.sparse.mm(csr, col), 20)
     cur, arrived = delivery.delivery_kernel(*args)
     ref_cur, ref_cnt = delivery.delivery_plain(*plain_args)
     check(torch.equal(cur, ref_cur) and torch.equal(arrived, ref_cnt > 0),
           "delivery: the kernel differs from delivery_plain on the scan's "
           "own fired pattern")
-    library_err = float((torch.mm(row, dense).reshape(cur.shape) - cur)
-                        .abs().max())
-    check(library_err == 0.0, "delivery: torch.mm currents differ from the "
-          f"kernel's by {library_err} (integer weights)")
+    library_err = max(
+        float((torch.mm(row, dense).reshape(cur.shape) - cur).abs().max()),
+        float((torch.sparse.mm(csr, col).reshape(cur.shape) - cur)
+              .abs().max()))
+    check(library_err == 0.0, "delivery: torch.mm or torch.sparse.mm "
+          f"currents differ from the kernel's by {library_err} (integer "
+          "weights)")
     print(f"delivery_timing: full step {SCAN_COMPARE_STEPS} fired "
           f"{int(fired.sum())}/{n_full}, {active}/{blk.n_tiles} source tiles "
           f"active, {blk.weights.shape[0]} blocks: delivery_kernel "
           f"{delivery_ms} ms ({read_b / delivery_ms * 1e-6} GB/s of fired "
           f"rows, {read_b} B), delivery_plain on CUDA tensors "
           f"{delivery_plain_ms} ms, torch.mm against the dense "
-          f"{blk.n_pad}x{blk.n_pad} float32 weights {library_ms} ms "
-          f"(currents equal); bound {delivery_bound} ms "
+          f"{blk.n_pad}x{blk.n_pad} float32 weights {library_ms} ms, "
+          f"torch.sparse.mm of the transposed CSR matrix "
+          f"({csr.values().numel()} non-zero cells) against the fired row "
+          f"{sparse_ms} ms (launches queued ahead; currents equal); bound "
+          f"{delivery_bound} ms "
           f"({delivery_bound_by}; {delivery_bound / delivery_ms} of it "
           f"reached); the earlier kernel's bytes (a count byte a cell, "
           f"{rows * blk.tile * 5} B) bound {earlier_bound} ms | {card}")
     full_step50 = fired.copy()
-    del dense, row, cur, arrived, ref_cur, ref_cnt, args, plain_args, x
+    del dense, csr, col, row, cur, arrived, ref_cur, ref_cnt, args
+    del plain_args, x
     del blk, plane, outs
     torch.cuda.empty_cache()
 
@@ -2561,9 +3159,13 @@ def run(tmp: Path) -> int:
                          card)
     level = dvs_phase(st, cuda, card, tmp)
     del full_compiled, mid_compiled
-    hh_phase(st, cuda, card)
+    hh_single = hh_phase(st, cuda, card)
     prefix = fixtures_phase(st, cuda, card, tmp)
     batch = sweep_phase(st, cuda, card, full_step50, single_full)
+    start = time.perf_counter()
+    mesh_phase(st, cuda, card, tmp, batch.pop("sweep"))
+    plugin_sweep_phase(st, cuda, card, hh_single)
+    print(f"phases 16-17: {time.perf_counter() - start} s", flush=True)
 
     print(json.dumps({"kernels": [
         {

@@ -20,8 +20,22 @@ runs B parameter samples of the SAME mapped chip through one step
   (float sums may differ in the last ulp).
 
 Restrictions, as in sanafe_tpu: the simple timing model only, and no
-host-fed stochastic models (TrueNorth LFSR noise, Poisson inputs). Plugin
-soma chips and ``mesh`` are not ported yet.
+host-fed stochastic models (TrueNorth LFSR noise, Poisson inputs).
+
+Plugin somas sweep like the built-in models, with their parameters under
+sanafe_tpu's device-array names ``plugin_<model>_<param>``. As in
+sanafe_tpu, the initial state is the compiled chip's, built once and
+broadcast over the samples: a shared-unit plugin's members are
+pre-advanced with the compiled parameters, not the swept ones. NeuroFEM's
+membrane noise is drawn once a step and shared by every sample, as
+sanafe_tpu's ``vmap`` shares its per-step key.
+
+``mesh`` (a one-dimensional ``torch.distributed`` ``DeviceMesh``) splits
+the samples over its ranks, as sanafe_tpu splits them over a device mesh:
+every rank builds the sweep with the same arguments, runs its share of the
+samples (its own live-row list), and the ``[B]`` results are gathered with
+one ``all_reduce`` (each sample's values come whole from one rank, zeros
+elsewhere, so the gather is exact).
 
 Overrides use sanafe_tpu's array names and layouts, so one override dict
 drives both packages: a ``conv_kernel_i`` override is the HWIO filter
@@ -47,7 +61,6 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .chip import _not_ported
 from .ops.conv import full_float32_matmul, hwio_to_oihw
 from .ops.dag_chunk import rollup_stats
 from .ops.delivery import build_live_rows, pack_arrival_plane
@@ -120,12 +133,17 @@ class ParameterSweep:
 
     def __init__(self, chip, overrides: dict, dtype=None, mesh=None,
                  mesh_axis: str = None):
-        """``dtype`` defaults to the chip's. ``mesh`` (sanafe_tpu shards
-        the sample axis over a device mesh) is not ported yet."""
+        """``dtype`` defaults to the chip's. ``mesh``, a one-dimensional
+        ``DeviceMesh`` (anything else raises ``TypeError``), splits the
+        samples over its ranks (module docstring); the sample count must
+        divide its size. ``mesh_axis`` names its dimension (default: its
+        only one)."""
         if mesh is not None:
-            raise _not_ported("ParameterSweep(mesh=...)",
-                              "ROADMAP.md section 1, 'Scale-out'")
-        del mesh_axis
+            from .parallel import check_mesh
+
+            check_mesh(mesh)
+            if mesh_axis not in (None, *(mesh.mesh_dim_names or ())):
+                raise ValueError(f"mesh has no dimension {mesh_axis!r}")
         c = chip.compiled
         if c is None:
             raise RuntimeError("No network loaded; call load() first")
@@ -138,17 +156,20 @@ class ParameterSweep:
                 "draw order is defined per-chip. Sweep deterministic "
                 "configurations, then sim() the winner."
             )
-        if c.plugin_specs:
-            raise _not_ported("ParameterSweep of a plugin soma chip",
-                              "ROADMAP.md section 1, 'Plugin sweeps'")
         self.compiled = c
         self.device = chip.device
         # The fused roll-up / dense-delivery matvec bakes every cost column
         # and the edge weights into its coefficient matrix at build time;
         # overriding one of those arrays per sample would silently no-op.
         # Pure state-dynamics parameters stay runtime inputs, so fusion is
-        # only disabled when a baked array is swept.
-        fuse = all(name in DYNAMICS_ONLY for name in overrides)
+        # only disabled when a baked array is swept. Plugin soma parameters
+        # (plugin_<model>_<param>) are runtime inputs of the plugin update
+        # too; sanafe_tpu turns fusion off for them, which in float32 sums
+        # the energies over the neurons in float32 instead of rounding the
+        # fused float64 product once (1.1e-6 relative from a single chip's
+        # on the 4096-neuron HH chip, PERF.md).
+        fuse = all(name in DYNAMICS_ONLY or name.startswith("plugin_")
+                   for name in overrides)
         self.prog = make_device_program(
             c, chip.device, chip.dtype if dtype is None else dtype,
             fuse=fuse)
@@ -161,6 +182,7 @@ class ParameterSweep:
             known["block_counts"] = None
         B = None
         self.arrays = dict(prog.arrays)
+        swept = {}  # name -> ([B, ...] values, dtype)
         for name, values in overrides.items():
             if name not in known:
                 names = ", ".join(sorted(known))
@@ -189,7 +211,23 @@ class ParameterSweep:
                 B = values.shape[0]
             elif values.shape[0] != B:
                 raise ValueError("inconsistent sample counts across overrides")
-            values = values.to(device=self.device, dtype=dtype_of)
+            swept[name] = (values, dtype_of)
+        self.batch = B
+        self.mesh = mesh
+        lo, hi = 0, B
+        if mesh is not None:
+            from .parallel import mesh_rank
+
+            rank, world, _ = mesh_rank(mesh)
+            if B % world:
+                raise ValueError(
+                    f"sample count {B} must divide the mesh axis "
+                    f"{mesh.mesh_dim_names[0] if mesh.mesh_dim_names else 0!r}"
+                    f" ({world} devices)")
+            lo, hi = rank * B // world, (rank + 1) * B // world
+        self.samples = (lo, hi)  # this rank's samples
+        for name, (values, dtype_of) in swept.items():
+            values = values[lo:hi].to(device=self.device, dtype=dtype_of)
             if name == "block_counts" and prog.kernel_delivery:
                 self.arrays["block_arrivals"] = torch.stack(
                     [pack_arrival_plane(v) for v in values])
@@ -199,7 +237,6 @@ class ParameterSweep:
             # the rows the kernel reads: those with an edge in any sample
             self.arrays["block_live_rows"] = build_live_rows(
                 self.arrays["block_weights"], self.arrays["block_arrivals"])
-        self.batch = B
 
     def run(self, timesteps: int, chunk: int = 4096) -> dict:
         """Run ``timesteps`` steps for every sample; returns ``[B]``-shaped
@@ -207,14 +244,14 @@ class ParameterSweep:
 
         One Python loop a chunk, as ``ops/scan.py:run_scan``: the stats are
         summed on the device and copied to the host once a chunk."""
-        B = self.batch
+        lo, hi = self.samples
         prog = self.prog
         a = self.arrays
         dev = self.device
         defer = prog.fused_rollup and not prog.dense_delivery
-        state = initial_state(self.compiled, prog.dtype, dev, batch=B)
-        counters = np.zeros((B, 5), dtype=np.int64)
-        energies = np.zeros((B, 6), dtype=np.float64)
+        state = initial_state(self.compiled, prog.dtype, dev, batch=hi - lo)
+        counters = np.zeros((hi - lo, 5), dtype=np.int64)
+        energies = np.zeros((hi - lo, 6), dtype=np.float64)
         t = 1
         remaining = timesteps
         with full_float32_matmul():
@@ -240,6 +277,8 @@ class ParameterSweep:
                 energies += stats[:, :, 5:11].sum(dim=0).cpu().numpy()
                 t += length
                 remaining -= length
+        if self.mesh is not None:
+            counters, energies = self._gather(counters, energies)
         return {
             "timesteps_executed": timesteps,
             "spikes": counters[:, 0],
@@ -255,3 +294,21 @@ class ParameterSweep:
             },
             "sim_time": energies[:, 5],
         }
+
+    def _gather(self, counters: np.ndarray, energies: np.ndarray) -> tuple:
+        """Every rank's samples' counters and energies, ``[B, ...]``: one
+        ``all_reduce`` of int64 rows, the float64 energies as their bit
+        patterns, this rank's samples in place and zeros elsewhere."""
+        import torch.distributed as dist
+
+        lo, hi = self.samples
+        group = self.mesh.get_group()
+        on = (self.device if dist.get_backend(group) == "nccl"
+              else torch.device("cpu"))
+        rows = np.zeros((self.batch, 11), dtype=np.int64)
+        rows[lo:hi, :5] = counters
+        rows[lo:hi, 5:] = energies.view(np.int64)
+        buf = torch.from_numpy(rows).to(on)
+        dist.all_reduce(buf, group=group)
+        rows = buf.cpu().numpy()
+        return rows[:, :5], np.ascontiguousarray(rows[:, 5:]).view(np.float64)

@@ -35,9 +35,14 @@ keeps the device's perf energies in float64, ``SANAFE_TPU_HEAD_CHUNK`` sets
 the head and tail chunks of a host-swept run (default 128), and
 ``SANAFE_TPU_ROLLUP_BYTES`` the fused roll-up's budget (``ops/step.py``).
 
-A request the port cannot serve raises ``NotImplementedError`` naming the
-ROADMAP item that ports it; nothing silently runs another engine or another
-device.
+``sim(mesh=...)`` shards the chip's neurons over the ranks of a
+one-dimensional ``torch.distributed`` ``DeviceMesh`` (``parallel/``): every
+rank calls ``sim`` on its own chip, and rank 0 writes the traces and
+sweeps detailed timing. Checkpoints are ``.npz`` files (sanafe_tpu's
+format, gathered to rank 0) or ``torch.distributed.checkpoint``
+directories written by every rank.
+
+Nothing silently runs another engine or another device.
 """
 
 from __future__ import annotations
@@ -71,6 +76,7 @@ from .ops.dag_chunk import make_dag_body, plan_dag, run_dag
 from .ops.merge_sweep import default_merge_cap, make_merge_sweep
 from .ops.scan import run_scan
 from .ops.step import DeviceProgram, initial_state, make_device_program
+from .parallel import state_neuron_dim
 from .ops.timing import (
     MessageRecord,
     build_timestep_messages,
@@ -104,12 +110,6 @@ HEARTBEAT_TIMESTEPS = 100  # src/chip.hpp:38
 DEFAULT_CHUNK = 1024
 # Head and tail chunk length under host-swept timing (see _plan_chunks)
 TAPER_CHUNK = 128
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to sanafe_tpu_torch yet ({item})"
-    )
 
 
 def _requested(target: Any) -> bool:
@@ -306,7 +306,9 @@ class MappedNeuron:
         return self._ref.global_id
 
     def get_potential(self) -> float:
-        state = self._chip._device_state
+        """The neuron's live potential (on a mesh a collective: every rank
+        calls it)."""
+        state = self._chip._full_state()
         if state is None:
             return float(self._chip.compiled.initial_potential[self._ref.slot])
         return float(state["potential"][self._ref.slot])
@@ -348,7 +350,7 @@ class MappedNeuron:
                     )
         # 'potential' writes live state directly (the reference sets
         # cx.potential on the loaded compartment)
-        if "potential" in attrs and chip._device_state is not None:
+        if "potential" in attrs and chip._full_state() is not None:
             state = dict(chip._device_state)
             potential = state["potential"].clone()
             potential[slot] = attrs["potential"].as_float()
@@ -416,6 +418,15 @@ class SpikingChip:
         self._spike_blob = None
         self._spike_addresses = None
         self._next_mid = 0
+        # scale-out (sim(mesh=...)): the mesh, the compiled chip padded to a
+        # multiple of its size, and the mesh the live state is cut for (None:
+        # the state is whole)
+        self._mesh = None
+        self._padded_compiled: Optional[CompiledChip] = None
+        self._state_mesh = None
+        # host seconds and count of this rank's collectives in its steps
+        self.exchange_wall = 0.0
+        self.exchanges = 0
 
     # --- loading -------------------------------------------------------------
     def load(self, net: SpikingNetwork, overwrite: bool = False) -> None:
@@ -448,7 +459,11 @@ class SpikingChip:
                         neuron.mapping_order += base
             self._nets.append(net)
             old_compiled = self.compiled
-            old_state = self._device_state
+            old_state = self._full_state()
+            if old_state is not None:
+                old_state = {key: value.narrow(state_neuron_dim(key), 0,
+                                               old_compiled.n_neurons)
+                             for key, value in old_state.items()}
             self.compiled = compile_chip(self.arch, self._merged_network())
             if old_state is not None:
                 self._device_state = self._migrate_state(
@@ -458,9 +473,7 @@ class SpikingChip:
             self._nets = [net]
             self.compiled = compile_chip(self.arch, net)
             self._device_state = None
-        self._programs.clear()
-        self._engines.clear()
-        self._sweeps.clear()
+        self._invalidate_programs()
         # spike-trace caches are keyed on label COUNT; a different network
         # with the same number of logged neurons would stream stale labels
         self._spike_labels = None
@@ -506,6 +519,83 @@ class SpikingChip:
         self._programs.clear()
         self._engines.clear()
         self._sweeps.clear()
+        self._padded_compiled = None
+
+    def set_mesh(self, mesh) -> None:
+        """Shard (or unshard, ``mesh=None``) this chip over a
+        one-dimensional ``torch.distributed.device_mesh.DeviceMesh``
+        (``parallel.check_mesh``; anything else raises ``TypeError``).
+        Device programs rebuild on the next sim(); the live state is
+        gathered whole now (a collective on the old mesh: every rank calls
+        it) and cut for the new mesh on the next sim(), so single ->
+        sharded -> single is lossless (padded slots are inert)."""
+        if mesh is not None:
+            from .parallel import check_mesh
+
+            check_mesh(mesh)
+        self._full_state()
+        self._mesh = mesh
+        self._invalidate_programs()
+
+    def _full_state(self) -> Optional[dict]:
+        """The live state, gathered whole first if it is cut for a mesh
+        (a collective: every rank calls it). Its neuron axis may hold the
+        padded slots of the last program."""
+        if self._state_mesh is not None and self._device_state is not None:
+            from .parallel import gather_state
+
+            n = self._padded_for(self._state_mesh).n_neurons
+            self._device_state = gather_state(self._device_state,
+                                              self._state_mesh, n)
+        self._state_mesh = None
+        return self._device_state
+
+    def _padded_for(self, mesh) -> CompiledChip:
+        """The compiled chip padded to a multiple of ``mesh``'s size
+        (``parallel.pad_compiled``; pad slots never update, fire or carry
+        energy)."""
+        from .parallel import pad_compiled
+
+        cached = self._padded_compiled
+        if cached is None or cached[0] is not mesh:
+            cached = (mesh, pad_compiled(self.compiled, mesh.size()))
+            self._padded_compiled = cached
+        return cached[1]
+
+    def _compiled_for_programs(self) -> CompiledChip:
+        """The compiled view device programs are built from: the chip's
+        compiled arrays, padded when a mesh is set."""
+        if self._mesh is None:
+            return self.compiled
+        return self._padded_for(self._mesh)
+
+    def _adapt_state(self, prog: DeviceProgram) -> dict:
+        """Fit the live state to ``prog``: grow (pad) or shrink (unpad) the
+        neuron axis of a whole state, then cut it for the program's mesh.
+        Pad slots hold init values and are never read by real slots, so
+        both directions keep every real neuron's state exactly."""
+        shard = prog.shard
+        if shard is not None and self._state_mesh is shard.mesh:
+            return self._device_state
+        state = self._full_state()
+        n_want = prog.compiled.n_neurons
+        n_have = state["potential"].shape[0]
+        if n_have != n_want:
+            init = initial_state(prog.compiled, self.dtype, self.device)
+            m = min(n_have, n_want)
+            for key, value in init.items():
+                if key in state:
+                    dim = state_neuron_dim(key)
+                    value.narrow(dim, 0, m).copy_(state[key].narrow(dim, 0,
+                                                                     m))
+            state = init
+        if shard is not None:
+            from .parallel import shard_state
+
+            state = shard_state(state, shard.mesh)
+            self._state_mesh = shard.mesh
+        self._device_state = state
+        return state
 
     def _migrate_state(self, old_compiled, old_state) -> dict:
         """Carry live per-neuron state across a recompile: existing neurons
@@ -544,7 +634,10 @@ class SpikingChip:
         ([n, max_taps]) and ``comp_buffer`` ([n, max_plugin_comp]), each
         plugin model's ``plugin_<name>_<var>`` ([n]), and optionally
         ``__total_timesteps__``, which sets the chip's timestep counter.
-        Each array is cast to the chip's dtype for its key."""
+        The neuron axis may be longer than the chip's ``n``: a sharded
+        run's checkpoint keeps its padded slots, which the next sim() drops
+        or keeps as its program needs. Each array is cast to the chip's
+        dtype for its key."""
         if self.compiled is None:
             raise RuntimeError("No network loaded; call load() first")
         template = self._init_state()
@@ -559,71 +652,158 @@ class SpikingChip:
             raise ValueError(
                 f"load_state_arrays: state {sorted(missing)} is missing"
             )
+        n = self.compiled.n_neurons
         state = {}
         for key, init in template.items():
             value = np.asarray(arrays[key])
-            if value.shape != tuple(init.shape):
+            dim = state_neuron_dim(key)
+            shape = list(init.shape)
+            if value.ndim == init.dim():
+                shape[dim] = max(n, value.shape[dim])
+            if value.shape != tuple(shape):
                 raise ValueError(
                     f"load_state_arrays: {key} has shape {value.shape}, "
-                    f"expected {tuple(init.shape)}"
+                    f"expected {tuple(init.shape)} (or a longer neuron axis "
+                    "of padded slots)"
                 )
             state[key] = torch.as_tensor(value).to(
                 device=self.device, dtype=init.dtype
             )
+        lengths = {value.shape[state_neuron_dim(key)]
+                   for key, value in state.items()}
+        if len(lengths) != 1:
+            raise ValueError("load_state_arrays: the state arrays' neuron "
+                             f"axes differ in length: {sorted(lengths)}")
         self._device_state = state
+        self._state_mesh = None
         if "__total_timesteps__" in arrays:
             self.total_timesteps = int(arrays["__total_timesteps__"])
 
     def save_state(self, path: str | Path) -> None:
         """Checkpoint the simulation state (the state tensors and the
-        timestep counter) as sanafe_tpu's ``.npz`` format: one array per
-        state key, with sanafe_tpu's keys and dtypes, plus
+        timestep counter).
+
+        A ``.npz`` path writes sanafe_tpu's format: one array per state
+        key, with sanafe_tpu's keys and dtypes, plus
         ``__total_timesteps__`` (int64), so that either package resumes a
-        file the other wrote. A suffix-less path writes ``<path>.npz`` with
-        a warning, as sanafe_tpu does where orbax is absent. Any other path
-        would be an orbax checkpoint directory in sanafe_tpu, which the
-        port does not write: it raises."""
+        file the other wrote. On a mesh the state is gathered to rank 0,
+        which writes it with the padded neuron axis, as sanafe_tpu writes a
+        sharded state (a collective: every rank calls it). A suffix-less
+        path that is not a directory writes ``<path>.npz`` with a warning,
+        as sanafe_tpu does where orbax is absent.
+
+        A directory (an existing one, or a path with a suffix other than
+        ``.npz``) is written by ``torch.distributed.checkpoint``: on a mesh
+        every rank writes its own slice of each state tensor (a ``DTensor``
+        sharded along the neuron axis), without a gather. sanafe_tpu writes
+        its directories with orbax; the two formats do not mix."""
         if self.compiled is None:
             raise RuntimeError("No network loaded; call load() first")
-        path = self._npz_path(path, "save_state")
+        path = Path(path)
+        if self._is_directory_checkpoint(path):
+            self._save_dcp(path)
+            return
         if path.suffix == "":
             path = path.with_suffix(".npz")
             warnings.warn(f"save_state: writing '{path}' (the .npz format; "
-                          "directory checkpoints need orbax)")
-        state = self._device_state
+                          "a directory path writes a "
+                          "torch.distributed.checkpoint)")
+        state = self._full_state()
         if state is None:
             state = self._init_state()
-        arrays = {key: value.detach().cpu().numpy()
-                  for key, value in state.items()}
-        arrays["__total_timesteps__"] = np.int64(self.total_timesteps)
-        np.savez_compressed(path, **arrays)
+        mesh = self._mesh
+        if mesh is None or mesh.get_local_rank() == 0:
+            arrays = {key: value.detach().cpu().numpy()
+                      for key, value in state.items()}
+            arrays["__total_timesteps__"] = np.int64(self.total_timesteps)
+            np.savez_compressed(path, **arrays)
+        if mesh is not None:
+            from .parallel import broadcast_object
+
+            # the file is whole wherever save_state has returned
+            broadcast_object(None, mesh, self.device)
 
     def load_state(self, path: str | Path) -> None:
-        """Restore a ``.npz`` checkpoint written by :meth:`save_state` of
-        either package (``load_state_arrays`` checks its keys and shapes). A
-        suffix-less path reads ``<path>.npz`` where that file exists, as
-        sanafe_tpu does; a directory (orbax) checkpoint raises."""
+        """Restore a checkpoint written by :meth:`save_state` of either
+        package (``.npz``; ``load_state_arrays`` checks its keys and
+        shapes), or a ``torch.distributed.checkpoint`` directory of this
+        package, whatever mesh wrote it: every rank reads the whole state,
+        and the next sim() cuts it for the current mesh. A suffix-less path
+        reads ``<path>.npz`` where that file exists, as sanafe_tpu does. A
+        directory that is not a ``torch.distributed.checkpoint`` (such as
+        sanafe_tpu's orbax directories) raises ``ValueError``."""
         if self.compiled is None:
             raise RuntimeError("No network loaded; call load() first")
         path = Path(path)
         if path.suffix == "" and not path.is_dir() and (
                 path.with_suffix(".npz").is_file()):
             path = path.with_suffix(".npz")
-        path = self._npz_path(path, "load_state")
+        if self._is_directory_checkpoint(path):
+            self._load_dcp(path)
+            return
         with np.load(path) as data:
             arrays = {key: data[key] for key in data.files}
         self.load_state_arrays(arrays)
 
     @staticmethod
-    def _npz_path(path: str | Path, what: str) -> Path:
-        path = Path(path)
-        if path.is_dir() or path.suffix not in ("", ".npz"):
+    def _is_directory_checkpoint(path: Path) -> bool:
+        return path.is_dir() or path.suffix not in ("", ".npz")
+
+    def _save_dcp(self, path: Path) -> None:
+        """Write a ``torch.distributed.checkpoint`` directory: each state
+        tensor as a ``DTensor`` sharded along its neuron axis on a mesh
+        (every rank writes its slice), else whole."""
+        import torch.distributed.checkpoint as dcp
+
+        if self._device_state is None:
+            self._device_state = self._init_state()
+            self._state_mesh = None
+        state = dict(self._device_state)
+        mesh = self._state_mesh
+        if mesh is not None:
+            from torch.distributed.tensor import DTensor, Shard
+
+            n = self._padded_for(mesh).n_neurons
+            for key, value in state.items():
+                dim = state_neuron_dim(key)
+                shape = list(value.shape)
+                shape[dim] = n
+                state[key] = DTensor.from_local(
+                    value.contiguous(), mesh, [Shard(dim)], run_check=False,
+                    shape=torch.Size(shape), stride=torch.empty(
+                        shape, device="meta").stride())
+        state["__total_timesteps__"] = torch.tensor(self.total_timesteps,
+                                                    dtype=torch.int64)
+        dcp.save(state, checkpoint_id=str(path),
+                 process_group=None if mesh is None else mesh.get_group())
+
+    def _load_dcp(self, path: Path) -> None:
+        """Read a directory written by ``_save_dcp``: every rank reads each
+        tensor whole (the neuron axis as written, padded slots included)."""
+        import torch.distributed.checkpoint as dcp
+        from torch.distributed.checkpoint.metadata import (
+            TensorStorageMetadata,
+        )
+
+        if not (path / ".metadata").is_file():
             raise ValueError(
-                f"{what}: {path} is not a .npz file; sanafe_tpu_torch reads "
-                "and writes the .npz checkpoint format only (sanafe_tpu's "
-                "directory checkpoints need orbax)"
+                f"load_state: {path} is not a torch.distributed.checkpoint "
+                "directory (no .metadata). sanafe_tpu_torch reads its own "
+                "directory checkpoints and .npz files; sanafe_tpu's orbax "
+                "directories are not read: save a .npz there instead"
             )
-        return path
+        metadata = dcp.FileSystemReader(str(path)).read_metadata()
+        target = {}
+        for key, meta in metadata.state_dict_metadata.items():
+            if not isinstance(meta, TensorStorageMetadata):
+                raise ValueError(f"load_state: {path} holds {key!r}, which "
+                                 "is not a tensor")
+            target[key] = torch.empty(tuple(meta.size),
+                                      dtype=meta.properties.dtype)
+        dcp.load(target, checkpoint_id=str(path), process_group=(
+            None if self._mesh is None else self._mesh.get_group()))
+        self.load_state_arrays({key: value.numpy()
+                                for key, value in target.items()})
 
     # --- simulation ----------------------------------------------------------
     def sim(
@@ -658,14 +838,27 @@ class SpikingChip:
         processing latency (the sweep retires in-flight messages assuming
         receive times never fall, as ``sanafe_tpu`` does); other requests
         take the host sweep. Steps the device flags are swept on the host
-        (``sweep_host_steps`` counts them)."""
+        (``sweep_host_steps`` counts them).
+
+        ``mesh``, a one-dimensional ``torch.distributed.device_mesh.
+        DeviceMesh`` (anything else raises ``TypeError``), shards the chip's
+        neurons over its ranks (``parallel/``), padded to a multiple of its
+        size by ``parallel.pad_compiled``. Every rank calls ``sim`` with the
+        same arguments on its own chip, built alike, whose device is the
+        rank's. The mesh is sticky across calls; pass another mesh or call
+        ``set_mesh(None)`` to change it. A sharded chip runs the step scan
+        (``device_engine == "scan"``). Only rank 0 opens the trace sinks,
+        runs the host sweep (or, with ``device_sweep``, the merge sweep on
+        the gathered masks) and writes ``run_summary.yaml``; every rank
+        returns the same result dict, broadcast from rank 0. The traces,
+        counters and energies equal the single-device run's."""
         if self.compiled is None:
             raise RuntimeError("No network loaded; call load() first")
         if timing_model not in TIMING_MODELS:
             raise ValueError(f"Timing model not recognized: {timing_model}")
-        if mesh is not None:
-            raise _not_ported("sim(mesh=...)",
-                              "ROADMAP.md section 1, 'Scale-out'")
+        if mesh is not None and mesh is not self._mesh:
+            self.set_mesh(mesh)
+        lead = self._mesh is None or self._mesh.get_local_rank() == 0
         if timing_model == "cycle" and self._get_native_scheduler() is None:
             print(
                 "Warning: the cycle-accurate NoC model needs the native "
@@ -706,8 +899,9 @@ class SpikingChip:
         # float32 only and the device sweep reads the scan's masks: all three
         # take the step scan, or the DAG engine where it takes the program
         engine = self._engine(prog_key, perf_on or use_device_sweep or (
-            self.device.type == "cuda" and self.dtype != torch.float32))
-        sweep = self._sweep() if use_device_sweep else None
+            self.device.type == "cuda" and self.dtype != torch.float32)
+            or self._mesh is not None)
+        sweep = self._sweep() if use_device_sweep and lead else None
         taper = (int(os.environ.get("SANAFE_TPU_HEAD_CHUNK",
                                     str(TAPER_CHUNK)))
                  if timing_model in ("detailed", "cycle")
@@ -725,14 +919,20 @@ class SpikingChip:
         # Trace objects are constructed per sim() call, matching the
         # reference Python module (src/pymodule.cpp:549-706)
         self.close()
-        self._open_traces(spike_trace, potential_trace, neuron_trace,
-                          perf_trace, message_trace, write_trace_headers)
+        if lead:
+            self._open_traces(spike_trace, potential_trace, neuron_trace,
+                              perf_trace, message_trace, write_trace_headers)
+        else:
+            self._open_traces(None, None, None, None, None, False)
         if os.environ.get("SANAFE_TPU_ASYNC_TRACE", "1") != "0" and any(
                 state.sink.stream is not None
                 for state in self._trace_states.values()):
             self._trace_writer = _AsyncTraceWriter()
         if self._device_state is None:
             self._device_state = engine.prog.init_state()
+            self._state_mesh = self._mesh
+        else:
+            self._adapt_state(engine.prog)
 
         t0 = self.total_timesteps + 1
         pending = None  # (host copy, t0, length): chunk k's host-side
@@ -742,7 +942,8 @@ class SpikingChip:
             for length in schedule:
                 device_start = time.perf_counter()
                 outputs = self._run_chunk(engine, t0, length, sweep)
-                fetch = _HostCopy(outputs)
+                # on a mesh the other ranks keep no outputs: rank 0 books
+                fetch = _HostCopy(outputs) if lead else None
                 self.neuron_processing_wall += (
                     time.perf_counter() - device_start
                 )
@@ -750,7 +951,7 @@ class SpikingChip:
                 # inside the host-side sweep, the drain below must not
                 # process (and double-count) the same chunk again
                 to_process, pending = pending, None
-                if to_process is not None:
+                if to_process is not None and lead:
                     self._process_chunk_outputs(
                         to_process[0], to_process[1], to_process[2],
                         engine, timing_model, rd, heartbeat,
@@ -761,7 +962,7 @@ class SpikingChip:
         except KeyboardInterrupt as exc:
             # graceful interruption between chunks (src/pymodule.cpp:638-652)
             interrupted = exc
-        if pending is not None:
+        if pending is not None and lead:
             self._process_chunk_outputs(
                 pending[0], pending[1], pending[2], engine, timing_model, rd,
                 heartbeat,
@@ -778,6 +979,15 @@ class SpikingChip:
             )
             raise interrupted
 
+        traces = self._trace_states
+        memories = {key: state.memory for key, state in traces.items()}
+        if self._mesh is not None:
+            from .parallel import broadcast_object
+
+            rd, memories = broadcast_object((rd, memories), self._mesh,
+                                            self.device)
+            if not lead:
+                self.total_messages_sent += rd.packets_sent
         self.total_energy += rd.total_energy
         self.synapse_energy += rd.synapse_energy
         self.dendrite_energy += rd.dendrite_energy
@@ -788,14 +998,10 @@ class SpikingChip:
         self.total_neurons_updated += rd.neurons_updated
         self.total_neurons_fired += rd.neurons_fired
 
-        traces = self._trace_states
         result = rd.to_dict()
         result["device_engine"] = engine.name
-        result["spike_trace"] = traces["spike"].memory
-        result["potential_trace"] = traces["potential"].memory
-        result["neuron_trace"] = traces["neuron"].memory
-        result["perf_trace"] = traces["perf"].memory
-        result["message_trace"] = traces["message"].memory
+        for key in ("spike", "potential", "neuron", "perf", "message"):
+            result[f"{key}_trace"] = memories[key]
         return result
 
     def _engine(self, prog_key: tuple, use_scan: bool) -> _Engine:
@@ -814,11 +1020,12 @@ class SpikingChip:
                 prog_key
             )
             prog = make_device_program(
-                self.compiled, self.device, self.dtype,
+                self._compiled_for_programs(), self.device, self.dtype,
                 record_fired_axons=record_fired_axons,
                 record_potentials=record_potentials,
                 record_spikes=record_spikes,
                 record_u=record_u,
+                mesh=self._mesh,
             )
             self._programs[prog_key] = prog
         plan = None if use_scan else plan_chunk(prog)
@@ -870,9 +1077,14 @@ class SpikingChip:
             )
             return outputs
         if plan is None:
+            shard = prog.shard
+            before = (shard.exchange_s, shard.exchanges) if shard else None
             self._device_state, outputs = run_scan(
                 prog, self._device_state, t0, length, feeds, sweep
             )
+            if shard is not None:
+                self.exchange_wall += shard.exchange_s - before[0]
+                self.exchanges += shard.exchanges - before[1]
             return outputs
         spike_plane, add_plane = build_planes(prog, plan, length, t0, feeds)
         rows_out, packed = chunk_kernel(
@@ -935,6 +1147,12 @@ class SpikingChip:
 
         fetch_start = time.perf_counter()
         buf = fetch.get()
+        nb_real = (c.n_neurons + 7) // 8
+        if "masks_packed" in buf and buf["masks_packed"].shape[2] != nb_real:
+            # a padded (sharded) program: pad slots never fire or update, so
+            # the real neurons' bytes equal the single-device planes
+            buf = dict(buf, masks_packed=np.ascontiguousarray(
+                buf["masks_packed"][:, :, :nb_real]))
         self.message_processing_wall += time.perf_counter() - fetch_start
         energy_start = time.perf_counter()
         stats_rows = None  # (counters, energies) per step: the scan's
@@ -1415,6 +1633,7 @@ class SpikingChip:
             key: torch.zeros_like(value)
             for key, value in self._init_state().items()
         }
+        self._state_mesh = None
 
     def get_power(self) -> float:
         """total energy / total simulated time (src/chip.cpp:607-621)."""
@@ -1423,8 +1642,11 @@ class SpikingChip:
         return 0.0
 
     def sim_output_run_summary(self, output_dir, run_data) -> None:
+        """Print and write ``run_summary.yaml`` (on a mesh, rank 0 only)."""
         from pathlib import Path
 
+        if self._mesh is not None and self._mesh.get_local_rank() != 0:
+            return
         text = self.format_run_summary(run_data)
         print(text, end="")
         (Path(output_dir) / "run_summary.yaml").write_text(text)

@@ -182,8 +182,11 @@ def register_soma_model(
     ``current`` the dtype, ``t`` the 1-based timestep as a Python int)
     and must return ``(new_state, fired, updated, potential)``. A model
     with ``dendrite_compartments > 0`` also receives ``comp`` [N, K], the
-    per-compartment input sums of the previous step. Reuses the existing id
-    if the name was registered before.
+    per-compartment input sums of the previous step. Under a
+    ``ParameterSweep`` the tensors carry a leading sample axis ([B, N],
+    ``comp`` [B, N, K]; a parameter may stay [N]), so an update written
+    elementwise, indexing the last axes, serves both. Reuses the existing
+    id if the name was registered before.
     """
     global _next_plugin_id
     existing = _REGISTRY.get(name)

@@ -67,7 +67,9 @@ def standard_normal(t: int, shape, dtype: torch.dtype) -> torch.Tensor:
 
 def neurofem_update(params, state, valid, current, t, comp):
     """process_fem (plugins/neurofem.cpp:275-318) with compartment inputs
-    comp[:, 0] -> u1 and comp[:, 1] -> u2."""
+    comp[..., 0] -> u1 and comp[..., 1] -> u2. The tensors are ``[n]``,
+    or ``[B, n]`` for a sweep's B samples; a step's ``[n]`` noise draws are
+    shared by the samples (sanafe_tpu's ``vmap`` shares its key)."""
     dt = params["dt"]
     lambda_d = params["lambda_d"]
     lambda_v = params["lambda_v"]
@@ -77,8 +79,8 @@ def neurofem_update(params, state, valid, current, t, comp):
     v = state["potential"]
     u_integrated = state["u_integrated"]
 
-    comp0 = comp[:, 0]
-    comp1 = comp[:, 1]
+    comp0 = comp[..., 0]
+    comp1 = comp[..., 1]
 
     u1 = u1 - lambda_d * dt * u1 + comp0
     u2 = u2 - lambda_d * dt * u2 + lambda_d * comp1
@@ -91,7 +93,7 @@ def neurofem_update(params, state, valid, current, t, comp):
     # reaches the device) while every sigma_v is zero
     sigma_v = params["sigma_v"]
     if bool(torch.any(sigma_v != 0.0)):
-        noise = standard_normal(t, v.shape, v.dtype).to(v.device)
+        noise = standard_normal(t, v.shape[-1:], v.dtype).to(v.device)
         noise_term = sigma_v * noise
     else:
         noise_term = torch.zeros_like(v)

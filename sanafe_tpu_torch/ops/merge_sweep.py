@@ -417,4 +417,6 @@ def make_merge_sweep(c: CompiledChip, sync_delay: float, dtype: torch.dtype,
     sweep_chunk.tables = tables
     sweep_chunk.m_cap = cap_req
     sweep_chunk.ring = F
+    # the sweep's chip; a padded (sharded) program's masks are cut to it
+    sweep_chunk.n_neurons = c.n_neurons
     return sweep_chunk

@@ -48,14 +48,17 @@ def run_scan(prog: DeviceProgram, state: dict, t0: int, length: int,
     """Run ``length`` timesteps from 1-based step ``t0``: returns the state
     after the last step and the named per-step outputs (module docstring),
     all on the program's device. ``feeds`` holds the host inputs of the
-    chunk as ``[length, k]`` arrays (``tn_noise``, ``poisson``). ``sweep``
+    chunk as ``[length, k]`` arrays (``tn_noise``, ``poisson``); a sharded
+    program (``parallel``) takes the columns of its own neurons. ``sweep``
     (a ``make_merge_sweep`` function; the program must record the masks)
     sweeps the chunk's steps on the device."""
     dev = prog.device
     a = prog.arrays
     defer_rollup = prog.fused_rollup and not prog.dense_delivery
+    cols = prog.shard.feed_cols if prog.shard is not None else {}
     chunk_feeds = {
-        key: torch.as_tensor(np.asarray(value)).to(dev)
+        key: torch.as_tensor(np.asarray(value)[:, cols[key]]
+                             if key in cols else np.asarray(value)).to(dev)
         for key, value in (feeds or {}).items()
     }
     steps: dict[str, list] = {}
@@ -78,7 +81,7 @@ def run_scan(prog: DeviceProgram, state: dict, t0: int, length: int,
                 outputs["opt_perf"] = opt_perf
     if sweep is not None and length:
         fired, updated = unpack_masks(outputs["masks_packed"],
-                                      prog.compiled.n_neurons)
+                                      sweep.n_neurons)
         outputs["sim_device"], outputs["sweep_overflow"] = sweep(fired,
                                                                  updated)
     return state, outputs

@@ -492,7 +492,9 @@ def test_checkpoint_resumes_across_packages(writer, tmp_path):
 
 def test_checkpoint_paths(tmp_path):
     """A suffix-less path writes and reads ``<path>.npz`` (with a warning
-    on write), as sanafe_tpu does without orbax; a directory raises."""
+    on write), as sanafe_tpu does without orbax; a directory is a
+    torch.distributed.checkpoint, which round-trips; a directory without
+    one (such as sanafe_tpu's orbax directories) raises."""
     chip = loaded(st, neurofem_chip)
     chip.sim(5, heartbeat=0)
     with pytest.warns(UserWarning, match="npz"):
@@ -503,10 +505,18 @@ def test_checkpoint_paths(tmp_path):
     assert other.total_timesteps == 5
     for key, value in chip._device_state.items():
         assert torch.equal(value, other._device_state[key]), key
-    with pytest.raises(ValueError, match="npz"):
-        chip.save_state(tmp_path)
-    with pytest.raises(ValueError, match="npz"):
-        chip.load_state(tmp_path)
+    directory = tmp_path / "state.dcp"
+    chip.save_state(directory)
+    assert (directory / ".metadata").is_file()
+    again = loaded(st, neurofem_chip)
+    again.load_state(directory)
+    assert again.total_timesteps == 5
+    for key, value in chip._device_state.items():
+        assert torch.equal(value, again._device_state[key]), key
+    orbax = tmp_path / "orbax"
+    orbax.mkdir()
+    with pytest.raises(ValueError, match="orbax"):
+        chip.load_state(orbax)
 
 
 # --- runtime attributes -------------------------------------------------------

@@ -14,7 +14,8 @@ the CPU (the plain version of the chunk kernel) against sanafe_tpu.
 - The port imports and runs with jax, sanafe_tpu and yaml unavailable.
 - Chips the whole-chunk engine refuses and the perf trace run on the step
   scan (tests/test_torch_scan.py holds the scan to sanafe_tpu's).
-- Requests outside the port so far raise NotImplementedError.
+- Requests the port refuses: a mesh that is not a DeviceMesh, a native
+  plugin library.
 """
 
 import os
@@ -354,8 +355,9 @@ def test_requests_outside_the_slice_raise(tmp_path, monkeypatch,
                                           request_kind):
     kwargs = {
         "plugin_soma": {},
-        # the device sweep runs in the port; of a program sharded over a
-        # mesh it does not
+        # scale-out is ported (tests/test_torch_parallel.py): a mesh that
+        # is not a one-dimensional DeviceMesh is refused, with or without
+        # the device sweep
         "device_sweep": {"device_sweep": True, "mesh": object()},
         "mesh": {"mesh": object()},
         # float64 keeps the chip off the fused dense delivery
@@ -385,9 +387,10 @@ def test_requests_outside_the_slice_raise(tmp_path, monkeypatch,
             with pytest.raises(RuntimeError, match="register_soma_model"):
                 loaded(mod, _plugin_soma, **kw)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        chip = loaded(st, example_chip, device="cpu")
+    chip = loaded(st, example_chip, device="cpu")
+    with pytest.raises(TypeError, match="DeviceMesh"):
         chip.sim(10, heartbeat=0, **kwargs)
+    assert chip._mesh is None and chip.total_timesteps == 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
