@@ -2,6 +2,7 @@
 """Smoke run of sanafe_tpu_torch on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --through 5    # phases 1-5 only, no result line
 
 Builds the six CUDA kernels (sanafe_tpu_torch/csrc/*_kernel.cu) and the
 kernels' chain floors (scripts/chain_floor.cu), one nvcc each, started
@@ -158,22 +159,27 @@ own line:
    4096-neuron chip in float64 with the perf trace and in float32 under the
    device sweep, 200 detailed steps each), then two spawned processes, gloo
    ranks both on the one card, each calling SpikingChip.sim(mesh=...) on
-   its own chip: full at full width (each rank holding its half of the
-   blocks): rank 0's spikes.csv byte-identical to one chip's, counters
-   equal, energies within 1e-6 relative, the delivery kernel launched in
-   each rank's process on every step and held to delivery_packed_plain on
-   the rank's own blocks at step 50, with the steps/s, each rank's kernel
-   ms and the exchange's ms a step; the float64 perf.csv byte-identical;
-   the device sweep's sim_time equal, the merge kernel launched on rank 0
-   only; phase 15's 16-sample sweep split over the two ranks, equal to
-   phase 15's sweep, with its samples x steps/s beside phase 15's; then one
-   NCCL rank on the same 4096-neuron runs, equal to one chip's. A rank that
-   fails or outlives its timeout fails the phase; the plain deliveries
-   raise inside the ranks;
-17. sweeps of plugin-soma chips: 4 thresholds of the full-width
-   Hodgkin-Huxley chip, 20 steps, through the batched delivery kernel (one
-   launch a step), with samples x steps/s beside phase 13's single chip
-   (the HH somas ignore the LIF threshold, so the samples are equal); the
+   its own chip: full at full width (each rank holding the blocks of the
+   destination tiles that hold its neurons): rank 0's spikes.csv
+   byte-identical to one chip's, counters equal, energies within 1e-6
+   relative, the delivery kernel launched in each rank's process on every
+   step and held to delivery_packed_plain on the rank's own blocks at step
+   50, with the steps/s, each rank's kernel ms and the exchange's ms a
+   step; the float64 perf.csv byte-identical; the device sweep's sim_time
+   equal, the merge kernel launched on rank 0 only; phase 15's 16-sample
+   sweep split over the two ranks, equal to phase 15's sweep, with its
+   samples x steps/s beside phase 15's, and each rank's batched kernel on
+   its own 8 samples' planes at step 50 held bit for bit to
+   delivery_batch_plain and to delivery_kernel; then one NCCL rank on the
+   same 4096-neuron runs, equal to one chip's. A rank that fails or
+   outlives its timeout fails the phase; the plain deliveries raise inside
+   the ranks;
+17. sweeps of plugin-soma chips: the full-width Hodgkin-Huxley chip's
+   stimulation currents x 0.5, 1, 1.5 and 2, 20 steps, through the batched
+   delivery kernel (one launch a step), the samples' activity not all equal,
+   with samples x steps/s beside phase 13's single chip, and the batched
+   kernel on the sweep's own planes at its busiest step held bit for bit
+   to delivery_batch_plain and to delivery_kernel sample by sample; the
    4096-neuron HH chip (stride 32) with 3 samples of thresholds and
    stimulation currents, 20 steps, each sample equal to a single chip on
    the card started from the same state (counters exact, energies and
@@ -252,7 +258,8 @@ MESH_DETAILED_STEPS = 200
 MESH_MID_STEPS = 200
 MESH_CHECK_STEP = 50  # the ranks' delivery kernels held to their plain version
 MESH_JOIN_S = 300  # a rank still alive after this fails the phase
-HH_SWEEP_SAMPLES = 4  # phase 17: the full HH chip's sweep
+# phase 17: the full HH chip's sweep of its stimulation currents x these
+HH_SWEEP_SCALES = (0.5, 1.0, 1.5, 2.0)
 HH_SWEEP_STEPS = 20
 HH_MID_SCALES = (0.5, 1.0, 1.5)  # mid HH: thresholds and currents x these
 HH_MID_STEPS_SWEEP = 20
@@ -1736,9 +1743,11 @@ def batch_planes(blk, n: int, samples: int, dtype, device):
         for b in range(samples)])
 
 
-def hold_batch(x, weights, arrivals, blk, live, name: str) -> float:
+def hold_batch(x, weights, arrivals, blk, live, name: str,
+               plain=None) -> float:
     """The batched kernel, reading the rows of ``live``, against
-    delivery_batch_plain on the same card tensors and against
+    delivery_batch_plain (or ``plain``, the same function saved where the
+    module's is refused) on the same card tensors and against
     delivery_kernel sample by sample, bit for bit; returns the largest
     absolute difference from the plain version."""
     import torch
@@ -1748,7 +1757,7 @@ def hold_batch(x, weights, arrivals, blk, live, name: str) -> float:
     args = (weights, arrivals, blk.src_tiles, blk.dest_offsets,
             blk.max_blocks_per_dest, live)
     cur, arrived = delivery.delivery_batch_kernel(x, *args)
-    ref_cur, ref_arrived = delivery.delivery_batch_plain(x, *args)
+    ref_cur, ref_arrived = (plain or delivery.delivery_batch_plain)(x, *args)
     torch.cuda.synchronize()
     check(same_bits(cur, ref_cur), f"{name}: currents differ from "
           "delivery_batch_plain")
@@ -1766,17 +1775,20 @@ def hold_batch(x, weights, arrivals, blk, live, name: str) -> float:
     return float((cur - ref_cur).abs().max())
 
 
-def sweep_plane(sweep, steps: int):
+def sweep_plane(sweep, steps: int, busiest: bool = False):
     """The [B, n_tiles, tile] fired planes that the sweep's batched
     delivery takes at step ``steps`` of a run from the start (a run of
-    ``steps`` steps through ``ops/step.py``'s wrapper)."""
+    ``steps`` steps through ``ops/step.py``'s wrapper); with ``busiest``,
+    those of the step of the run that fired the most."""
     from sanafe_tpu_torch.ops import step as step_mod
 
     kernel = step_mod.delivery_batch_kernel
     seen = []
 
     def record(x, *args):
-        seen[:] = [x]
+        if not busiest or not seen or int(x.count_nonzero()) > int(
+                seen[0].count_nonzero()):
+            seen[:] = [x.clone()]
         return kernel(x, *args)
 
     step_mod.delivery_batch_kernel = record
@@ -1784,7 +1796,15 @@ def sweep_plane(sweep, steps: int):
         sweep.run(steps)
     finally:
         step_mod.delivery_batch_kernel = kernel
-    return seen[0].clone()
+    return seen[0]
+
+
+def hold_sweep(sweep, x, name: str, plain=None) -> float:
+    """hold_batch on a sweep's own planes ``x`` (sweep_plane), weights,
+    arrival planes and live-row list."""
+    a = sweep.arrays
+    return hold_batch(x, a["block_weights"], a["block_arrivals"],
+                      sweep.prog.block, a["block_live_rows"], name, plain)
 
 
 def live_fired(x, blk, live) -> tuple:
@@ -2193,7 +2213,7 @@ def mesh_full(st, mesh, dev, out: Path, tag: str, ctx: dict) -> dict:
     from sanafe_tpu_torch.ops import delivery
     from sanafe_tpu_torch.ops.scan import run_scan
     from sanafe_tpu_torch.ops.step import make_device_program
-    from sanafe_tpu_torch.parallel import pad_compiled
+    from sanafe_tpu_torch.parallel import pad_chip
 
     arch, net = random_chip(st, **FULL)
     chip = st.SpikingChip(arch, device=dev)
@@ -2221,7 +2241,7 @@ def mesh_full(st, mesh, dev, out: Path, tag: str, ctx: dict) -> dict:
     chip.close()
     counts = read_counts()
     # this rank's blocks, at the fired pattern of step MESH_CHECK_STEP
-    prog = make_device_program(pad_compiled(chip.compiled, mesh.size()), dev,
+    prog = make_device_program(pad_chip(chip.compiled, mesh.size()), dev,
                                torch.float32, record_fired_axons=True,
                                use_kernel=True, mesh=mesh)
     _, o = run_scan(prog, prog.init_state(), 1, MESH_CHECK_STEP)
@@ -2257,7 +2277,7 @@ def mesh_full(st, mesh, dev, out: Path, tag: str, ctx: dict) -> dict:
         "launches": counts, "kernel_ms": kernel_ms,
         "max_abs_err": float((cur - ref_cur).abs().max()),
         "fired_step": int(fired.sum()), "n_pad": prog.compiled.n_neurons,
-        "blocks": blk.weights.shape[0], "blocks_total": prog.blocks_total,
+        "blocks": blk.weights.shape[0],
         "tiles": (int(owned.min()), int(owned.max()) + 1)
         if len(owned) else None,
         "lo_hi": (prog.shard.lo, prog.shard.hi),
@@ -2300,7 +2320,11 @@ def mesh_mid_sweep(st, mesh, dev, out: Path, tag: str, ctx: dict) -> dict:
 
 def mesh_sweep16(st, mesh, dev, out: Path, tag: str, ctx: dict) -> dict:
     """Rank case: phase 15's sweep of full, its samples split over the
-    mesh (reuses the full chip of ``mesh_full``)."""
+    mesh (reuses the full chip of ``mesh_full``); then the batched kernel
+    on the rank's own planes at step MESH_CHECK_STEP against its plain
+    version."""
+    import torch
+
     chip = ctx["full_chip"]
     base = float(chip.compiled.threshold[0])
     values = np.linspace(0.5, 4.0, PARAM_SAMPLES) * base
@@ -2314,8 +2338,16 @@ def mesh_sweep16(st, mesh, dev, out: Path, tag: str, ctx: dict) -> dict:
     result = sweep.run(PARAM_STEPS)
     sync(dev)
     wall = time.perf_counter() - start
-    return {"out": result, "wall": wall, "launches": read_counts(),
-            "samples": sweep.samples}
+    counts = read_counts()
+    planes, fired, err = None, 1, 0.0
+    if torch.device(dev).type == "cuda":
+        x = sweep_plane(sweep, MESH_CHECK_STEP)
+        err = hold_sweep(sweep, x, f"{tag} rank {mesh.get_local_rank()} "
+                         f"sweep", ctx["batch_plain"])
+        planes, fired = tuple(x.shape), int(x.count_nonzero())
+    return {"out": result, "wall": wall, "launches": counts,
+            "samples": sweep.samples, "planes": planes,
+            "fired_step": fired, "max_abs_err": err}
 
 
 def same_bits_share(a: dict, b: dict) -> float:
@@ -2368,7 +2400,8 @@ def rank_main(rank: int, world: int, backend: str, store: str, out: str,
         mesh = init_device_mesh(dev.type, (world,),
                                 mesh_dim_names=("cores",))
         tag = f"{backend}{world}"
-        ctx = {"packed_plain": delivery.delivery_packed_plain}
+        ctx = {"packed_plain": delivery.delivery_packed_plain,
+               "batch_plain": delivery.delivery_batch_plain}
         results = {}
         with RefusedPlain(dev):
             for case in cases:
@@ -2494,6 +2527,8 @@ def mesh_phase(st, device, card, tmp: Path, full_sweep: dict) -> dict:
         check(s16["launches"]["delivery_batch_kernel"]
               == PARAM_STEPS * on_card,
               f"sweep rank {rank}: launches {s16['launches']}")
+        check(s16["max_abs_err"] == 0.0 and s16["fired_step"] > 0,
+              f"sweep rank {rank}: the batched kernel on its own planes")
         # counters exact; a rank's samples sum their energies over [B/2, n]
         # where phase 15 summed [B, n]: the reduction may order them
         # differently, within the float32 bar
@@ -2519,8 +2554,8 @@ def mesh_phase(st, device, card, tmp: Path, full_sweep: dict) -> dict:
           f"on {device} (ranks' neurons "
           f"{[r['full']['lo_hi'] for r in gloo]}, destination tiles "
           f"{[r['full']['tiles'] for r in gloo]}, blocks "
-          f"{[r['full']['blocks'] for r in gloo]} of "
-          f"{full0['blocks_total']}): simple {MESH_SIMPLE_STEPS} steps "
+          f"{[r['full']['blocks'] for r in gloo]}): simple "
+          f"{MESH_SIMPLE_STEPS} steps "
           f"{rates['simple_steps_s']} steps/s (one chip "
           f"{rates['single_simple_steps_s']}), detailed "
           f"{MESH_DETAILED_STEPS} steps with the spike trace "
@@ -2556,7 +2591,12 @@ def mesh_phase(st, device, card, tmp: Path, full_sweep: dict) -> dict:
           f"gloo ranks: {rate} samples x steps/s (phase 15, one process: "
           f"{full_sweep['rate']}); batched-kernel launches by rank "
           f"{[r['sweep16']['launches']['delivery_batch_kernel'] for r in gloo]}"
-          f"; equal to phase 15's sweep (counters exact, energies and "
+          f"; each rank's batched kernel on its own planes "
+          f"{[r['sweep16']['planes'] for r in gloo]} at step "
+          f"{MESH_CHECK_STEP} ({[r['sweep16']['fired_step'] for r in gloo]} "
+          f"fired) equal to delivery_batch_plain and to delivery_kernel "
+          f"sample by sample; equal to phase 15's sweep (counters exact, "
+          f"energies and "
           f"sim_time within {REL_TOL}; energies bit-equal in "
           f"{same_bits_share(s16['out'], full_sweep['out'])} of the sample "
           f"values) OK | {card}", flush=True)
@@ -2590,15 +2630,18 @@ def plugin_sweep_phase(st, device, card, hh_single: dict) -> None:
     from sanafe_tpu_torch.ops.step import initial_state
 
     on_card = torch.device(device).type == "cuda"
-    # --- 17a. the full-width HH chip, HH_SWEEP_SAMPLES thresholds ---
+    # --- 17a. the full-width HH chip, its currents x HH_SWEEP_SCALES ---
     arch, net = hh_chip(st, **FULL)
     chip = st.SpikingChip(arch, device=device)
     chip.load(net)
-    values = np.linspace(32.0, 128.0, HH_SWEEP_SAMPLES)
-    sweep = st.ParameterSweep(chip, {"threshold": st.expand_group_values(
-        chip.compiled, "threshold", {"pop": values})})
+    current = chip.compiled.plugin_params["hodgkin_huxley"]["current"]
+    scales = np.asarray(HH_SWEEP_SCALES)
+    sweep = st.ParameterSweep(chip, {
+        "plugin_hodgkin_huxley_current": current[None, :] * scales[:, None]})
     check(sweep.prog.kernel_delivery == on_card, "full HH sweep: program")
-    sweep.run(2)  # warm
+    # warm, and on the card the planes of the run's busiest step
+    x = (sweep_plane(sweep, HH_SWEEP_STEPS, busiest=True) if on_card
+         else sweep.run(2) and None)
     sync(device)
     with RefusedPlain(device):
         reset_counts()
@@ -2610,22 +2653,28 @@ def plugin_sweep_phase(st, device, card, hh_single: dict) -> None:
     check(counts["delivery_batch_kernel"] == HH_SWEEP_STEPS * on_card
           and counts["delivery_kernel"] == 0,
           f"full HH sweep: launches {counts}")
-    # thresholds are LIF parameters: the HH somas ignore them
-    for key in COUNTERS:
-        check(len(set(out[key].tolist())) == 1 and int(out[key][0]) > 0,
-              f"full HH sweep: {key} {out[key].tolist()}")
+    fired = out["neurons_fired"].tolist()
+    check(len(set(fired)) > 1 and min(fired) > 0,
+          f"full HH sweep: the samples' activity {fired}")
     check(bool(np.all(np.isfinite(out["energy"]["total"])))
           and bool(np.all(out["sim_time"] > 0)),
           "full HH sweep: energies or sim_time")
-    rate = HH_SWEEP_SAMPLES * HH_SWEEP_STEPS / wall
+    hold_err = hold_sweep(sweep, x, "full HH sweep") if on_card else 0.0
+    fired_x = int(x.count_nonzero()) if on_card else 0
+    check(fired_x > 0 or not on_card, "full HH sweep: no spike to hold")
+    rate = len(scales) * HH_SWEEP_STEPS / wall
     print(f"hh_sweep: full HH n={chip.compiled.n_neurons} (shared stride "
           f"{chip.compiled.plugin_shared_max_stride}) float32, "
-          f"{HH_SWEEP_SAMPLES} thresholds, {HH_SWEEP_STEPS} steps simple: "
-          f"{rate} samples x steps/s ({HH_SWEEP_STEPS / wall} swept steps/s; "
-          f"one chip, phase 13: {hh_single['steps_s']} steps/s); fired a "
-          f"sample {int(out['neurons_fired'][0])}; launches {counts} | "
+          f"{len(scales)} samples (currents x {scales.tolist()}), "
+          f"{HH_SWEEP_STEPS} steps simple: {rate} samples x steps/s "
+          f"({HH_SWEEP_STEPS / wall} swept steps/s; one chip, phase 13: "
+          f"{hh_single['steps_s']} steps/s); fired {fired}; launches "
+          f"{counts}; the batched kernel on the sweep's own planes at its "
+          f"busiest step ({fired_x} fired in {len(scales)} samples) equal "
+          f"to delivery_batch_plain and to "
+          f"delivery_kernel sample by sample (max_abs_err {hold_err}) | "
           f"{card}", flush=True)
-    del sweep, chip
+    del sweep, chip, x
     if on_card:
         torch.cuda.empty_cache()
 
@@ -2675,17 +2724,26 @@ def plugin_sweep_phase(st, device, card, hh_single: dict) -> None:
           flush=True)
 
 def main() -> int:
+    import argparse
+
     import torch
 
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument(
+        "--through", type=int, choices=(5,), default=None,
+        help="stop after this phase: a probe of the first phases, which "
+        "prints no result line")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        return run(Path(tmp))
+        return run(Path(tmp), args.through)
 
 
-def run(tmp: Path) -> int:
-    """Every phase; trace files go under ``tmp``."""
+def run(tmp: Path, through=None) -> int:
+    """Every phase, or phases 1 to ``through``; trace files go under
+    ``tmp``."""
     import torch
 
     import sanafe_tpu_torch as st
@@ -2907,6 +2965,10 @@ def run(tmp: Path) -> int:
               f"{compile_s} s")
         del blk, plane, x, cur, arrived, ref_cur, ref_cnt
     torch.cuda.empty_cache()
+    if through == 5:
+        torch.cuda.synchronize()
+        print("stopped after phase 5", flush=True)
+        return 0
 
     # --- 6. the step scan at full width through the user API ---
     spikes_csv = tmp / "full_spikes.csv"

@@ -552,13 +552,13 @@ class SpikingChip:
 
     def _padded_for(self, mesh) -> CompiledChip:
         """The compiled chip padded to a multiple of ``mesh``'s size
-        (``parallel.pad_compiled``; pad slots never update, fire or carry
+        (``parallel.pad_chip``; pad slots never update, fire or carry
         energy)."""
-        from .parallel import pad_compiled
+        from .parallel import pad_chip
 
         cached = self._padded_compiled
         if cached is None or cached[0] is not mesh:
-            cached = (mesh, pad_compiled(self.compiled, mesh.size()))
+            cached = (mesh, pad_chip(self.compiled, mesh.size()))
             self._padded_compiled = cached
         return cached[1]
 
@@ -843,7 +843,7 @@ class SpikingChip:
         ``mesh``, a one-dimensional ``torch.distributed.device_mesh.
         DeviceMesh`` (anything else raises ``TypeError``), shards the chip's
         neurons over its ranks (``parallel/``), padded to a multiple of its
-        size by ``parallel.pad_compiled``. Every rank calls ``sim`` with the
+        size by ``parallel.pad_chip``. Every rank calls ``sim`` with the
         same arguments on its own chip, built alike, whose device is the
         rank's. The mesh is sticky across calls; pass another mesh or call
         ``set_mesh(None)`` to change it. A sharded chip runs the step scan
@@ -851,7 +851,9 @@ class SpikingChip:
         runs the host sweep (or, with ``device_sweep``, the merge sweep on
         the gathered masks) and writes ``run_summary.yaml``; every rank
         returns the same result dict, broadcast from rank 0. The traces,
-        counters and energies equal the single-device run's."""
+        counters and energies equal the single-device run's. A plugin
+        soma's update sees only its rank's neurons
+        (``models.register_soma_model``)."""
         if self.compiled is None:
             raise RuntimeError("No network loaded; call load() first")
         if timing_model not in TIMING_MODELS:

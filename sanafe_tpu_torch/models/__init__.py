@@ -72,6 +72,9 @@ class ModelSpec:
     # neuron per timestep. Only meaningful for models that also ignore the
     # synaptic input. Emulated per-neuron via rank/stride (see ops/step.py).
     shared_unit_state: bool = False
+    # True when the update also takes ``lanes``, the range of the chip's
+    # neuron indices its tensors hold (see register_soma_model)
+    takes_lanes: bool = False
 
 
 # Framework attributes recognized by every unit (src/pipeline.hpp:182-205)
@@ -174,6 +177,7 @@ def register_soma_model(
     attributes: dict[str, str] | None = None,
     dendrite_compartments: int = 0,
     shared_unit_state: bool = False,
+    lanes: bool = False,
 ) -> ModelSpec:
     """Register a Python soma model (the dlopen-plugin replacement).
 
@@ -185,8 +189,16 @@ def register_soma_model(
     per-compartment input sums of the previous step. Under a
     ``ParameterSweep`` the tensors carry a leading sample axis ([B, N],
     ``comp`` [B, N, K]; a parameter may stay [N]), so an update written
-    elementwise, indexing the last axes, serves both. Reuses the existing
-    id if the name was registered before.
+    elementwise, indexing the last axes, serves both.
+
+    When ``sim(mesh=...)`` shards the chip, each rank's update sees only
+    the neurons that rank owns: the tensors are ``[N_rank]``, a slice of
+    the padded chip. A model registered with ``lanes=True`` also receives
+    the keyword ``lanes``, the ``range`` of the chip's neuron indices its
+    tensors hold (``range(0, N)`` on one device and in a sweep); a model
+    that draws random numbers per neuron keys each draw by that index, so
+    a sharded run draws what one device draws. Reuses the existing id if
+    the name was registered before.
     """
     global _next_plugin_id
     existing = _REGISTRY.get(name)
@@ -209,6 +221,7 @@ def register_soma_model(
         state_init=dict(state or {}),
         dendrite_compartments=dendrite_compartments,
         shared_unit_state=shared_unit_state,
+        takes_lanes=lanes,
     )
     register_model(spec)
     return spec

@@ -11,19 +11,23 @@ The reference adds ``sigma_v * N(0,1)`` membrane noise drawn from an
 ``std::mt19937`` seeded by ``std::random_device``
 (plugins/neurofem.cpp:26-28) — nondeterministic across runs even there.
 sanafe_tpu draws it from a threefry key folded with the timestep; this port
-draws it on the host from a ``torch.Generator`` seeded by
-(``SANAFE_TPU_NEUROFEM_SEED``, default 42; the timestep), and copies the
-draws to the chip's device. So runs are bit-reproducible, the same on the
-CPU and the card, and resumable (sample t is the same whether reached in
-one sim() call or several). Neither stream is the other's: the
-distribution, not the sequence, matches the reference. With every
-``sigma_v`` zero (the default) nothing is drawn.
+draws it on the host, each neuron's draw a function of
+(``SANAFE_TPU_NEUROFEM_SEED``, default 42; the timestep; the neuron's
+index) alone, and copies the draws to the chip's device. So runs are
+bit-reproducible, the same on the CPU and the card, resumable (sample t is
+the same whether reached in one sim() call or several) and the same when
+``sim(mesh=...)`` shards the neurons (each rank draws its own neurons').
+Neither stream is the other's: the distribution, not the sequence,
+matches the reference. With every ``sigma_v`` zero (the default) nothing
+is drawn.
 """
 
 from __future__ import annotations
 
+import math
 import os
 
+import numpy as np
 import torch
 
 from . import register_soma_model
@@ -47,29 +51,43 @@ _MASK64 = (1 << 64) - 1
 
 
 def step_seed(seed: int, t: int) -> int:
-    """The generator seed of timestep ``t``: splitmix64 of
-    ``seed * golden-ratio + t``, cut to the 32 bits torch's CPU generator
-    (mt19937) keeps of a seed."""
+    """The seed of timestep ``t``'s draws: splitmix64 of
+    ``seed * golden-ratio + t``, cut to 32 bits."""
     z = (seed * 0x9E3779B97F4A7C15 + t) & _MASK64
     z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
     z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
     return (z ^ (z >> 31)) & 0xFFFFFFFF
 
 
-def standard_normal(t: int, shape, dtype: torch.dtype) -> torch.Tensor:
-    """The ``N(0,1)`` draws of timestep ``t`` on the host, from a generator
-    seeded by ``step_seed(SANAFE_TPU_NEUROFEM_SEED (default 42), t)``."""
+def _mix64(z: np.ndarray) -> np.ndarray:
+    """splitmix64's output function on uint64 lanes (wrapping)."""
+    z = (z ^ (z >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+    z = (z ^ (z >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+    return z ^ (z >> np.uint64(31))
+
+
+def standard_normal(t: int, lanes: range) -> np.ndarray:
+    """The float64 ``N(0,1)`` draws of timestep ``t`` for the neurons
+    ``lanes``: neuron i's draw is Box-Muller of two uniforms hashed from
+    (``step_seed(SANAFE_TPU_NEUROFEM_SEED (default 42), t)``, i) alone."""
     seed = int(os.environ.get("SANAFE_TPU_NEUROFEM_SEED", "42"))
-    gen = torch.Generator(device="cpu")
-    gen.manual_seed(step_seed(seed, int(t)))
-    return torch.randn(shape, generator=gen, dtype=dtype)
+    # 32 bits of step seed above 31 bits of neuron index, times 2
+    key = (np.arange(lanes.start, lanes.stop, dtype=np.uint64)
+           + np.uint64(step_seed(seed, int(t)) << 31)) << np.uint64(1)
+    golden = np.uint64(0x9E3779B97F4A7C15)
+    bits1 = _mix64(key * golden) >> np.uint64(11)
+    bits2 = _mix64((key | np.uint64(1)) * golden) >> np.uint64(11)
+    u1 = (bits1.astype(np.float64) + 1.0) * 2.0 ** -53  # (0, 1]
+    u2 = bits2.astype(np.float64) * 2.0 ** -53  # [0, 1)
+    return np.sqrt(-2.0 * np.log(u1)) * np.cos(2.0 * math.pi * u2)
 
 
-def neurofem_update(params, state, valid, current, t, comp):
+def neurofem_update(params, state, valid, current, t, comp, lanes=None):
     """process_fem (plugins/neurofem.cpp:275-318) with compartment inputs
     comp[..., 0] -> u1 and comp[..., 1] -> u2. The tensors are ``[n]``,
     or ``[B, n]`` for a sweep's B samples; a step's ``[n]`` noise draws are
-    shared by the samples (sanafe_tpu's ``vmap`` shares its key)."""
+    shared by the samples (sanafe_tpu's ``vmap`` shares its key). ``lanes``
+    are the neuron indices the tensors hold (``range(n)`` when None)."""
     dt = params["dt"]
     lambda_d = params["lambda_d"]
     lambda_v = params["lambda_v"]
@@ -93,7 +111,10 @@ def neurofem_update(params, state, valid, current, t, comp):
     # reaches the device) while every sigma_v is zero
     sigma_v = params["sigma_v"]
     if bool(torch.any(sigma_v != 0.0)):
-        noise = standard_normal(t, v.shape[-1:], v.dtype).to(v.device)
+        if lanes is None:
+            lanes = range(v.shape[-1])
+        noise = torch.from_numpy(standard_normal(t, lanes)).to(
+            device=v.device, dtype=v.dtype)
         noise_term = sigma_v * noise
     else:
         noise_term = torch.zeros_like(v)
@@ -135,4 +156,5 @@ register_soma_model(
     state={"potential": 0.0, "u1": 0.0, "u2": 0.0, "u_integrated": 0.0},
     attributes=NEUROFEM_ATTRIBUTES,
     dendrite_compartments=2,
+    lanes=True,
 )

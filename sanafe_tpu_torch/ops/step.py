@@ -113,18 +113,6 @@ def block_tiling(n: int) -> tuple:
     return tile, -(-n // tile)
 
 
-def _fit(arr, n: int, fill=0) -> np.ndarray:
-    """``arr`` padded with ``fill`` along its first axis to ``n`` rows:
-    ``parallel.pad_compiled`` (a copy of sanafe_tpu's) leaves the perf
-    columns and the shared-unit ranks and strides at the real neuron
-    count."""
-    arr = np.asarray(arr)
-    if arr.shape[0] >= n:
-        return arr
-    widths = [(0, n - arr.shape[0])] + [(0, 0)] * (arr.ndim - 1)
-    return np.pad(arr, widths, constant_values=fill)
-
-
 def build_block_delivery(
     c: CompiledChip, dtype: torch.dtype, device,
     edge_subset: Optional[np.ndarray] = None,
@@ -324,16 +312,16 @@ def initial_state(c: CompiledChip, dtype: torch.dtype, device,
     for spec in c.plugin_specs:
         if not spec.shared_unit_state or max_rank <= 0:
             continue
-        rank = torch.as_tensor(_fit(c.plugin_shared_rank, n),
-                               device=device)
+        rank = torch.as_tensor(c.plugin_shared_rank, device=device)
         params = {p: farr(v) for p, v in c.plugin_params[spec.name].items()}
         st = {var: state[f"plugin_{spec.name}_{var}"]
               for var in spec.state_init}
         no_input = torch.zeros(n, dtype=torch.bool, device=device)
         zero_cur = torch.zeros(n, dtype=dtype, device=device)
         for j in range(max_rank):
-            advanced, _, _, _ = spec.soma_update(params, st, no_input,
-                                                 zero_cur, 1)
+            advanced, _, _, _ = spec.soma_update(
+                params, st, no_input, zero_cur, 1,
+                **({"lanes": range(n)} if spec.takes_lanes else {}))
             st = {var: torch.where(rank > j, advanced[var], value)
                   for var, value in st.items()}
         for var, value in st.items():
@@ -372,10 +360,6 @@ class DeviceProgram:
     # start at n_stats_cols
     dense_delivery: bool = False
     n_stats_cols: int = 0
-    # blocks of the whole chip (a sharded program's `block` holds its own
-    # destination tiles' only) and the mesh `block` was cut for
-    blocks_total: int = 0
-    block_mesh: object = None
     # this rank's part of a program sharded over a mesh (parallel.Shard)
     shard: object = None
 
@@ -411,9 +395,10 @@ def make_device_program(
     """sanafe_tpu's ``make_device_program`` on ``device``.
 
     ``mesh`` (a one-dimensional ``DeviceMesh``; ``compiled`` padded to a
-    multiple of its size by ``parallel.pad_compiled``) builds this rank's
-    part of a sharded program (``parallel.shard_program``): the block
-    delivery of its destination tiles only, and the step of its neurons.
+    multiple of its size by ``parallel.pad_chip``) builds this rank's part
+    of a sharded program (``parallel.shard_program``): the block delivery
+    of the destination tiles that hold its neurons, and the step of its
+    neurons.
 
     ``fuse=False`` turns the fused roll-up and the dense delivery columns
     off, as in sanafe_tpu: their matrix bakes the cost columns and the edge
@@ -533,9 +518,8 @@ def make_device_program(
             np.concatenate([members for _, members in c.input_units])
         )
     if c.perf_col_names:
-        arrays["perf_col_fired"] = farr(_fit(c.perf_col_fired, c.n_neurons))
-        arrays["perf_col_updated"] = farr(_fit(c.perf_col_updated,
-                                               c.n_neurons))
+        arrays["perf_col_fired"] = farr(c.perf_col_fired)
+        arrays["perf_col_updated"] = farr(c.perf_col_updated)
         arrays["perf_col_const"] = farr(c.perf_col_const)
     if c.neuron_proc_lat_core is not None:
         arrays["neuron_proc_lat_core"] = farr(c.neuron_proc_lat_core)
@@ -549,8 +533,8 @@ def make_device_program(
         for param, values in c.plugin_params[spec.name].items():
             arrays[f"plugin_{spec.name}_{param}"] = farr(values)
     if any(spec.shared_unit_state for spec in c.plugin_specs):
-        arrays["plugin_shared_stride"] = iarr(
-            _fit(c.plugin_shared_stride, c.n_neurons, fill=1), torch.int32)
+        arrays["plugin_shared_stride"] = iarr(c.plugin_shared_stride,
+                                              torch.int32)
     if c.has_multitap:
         arrays["tap_time_constants"] = farr(c.tap_time_constants)
         arrays["tap_space_constants"] = farr(c.tap_space_constants)
@@ -571,12 +555,15 @@ def make_device_program(
     blocks_total = None
     if mesh is not None and not (
             c.has_delay_dendrite or c.has_multitap or c.has_plugin_comp):
-        # this rank's destination tiles only
-        from ..parallel import block_edge_owner, mesh_rank
+        # the tiles that hold this rank's neurons only; the route is the
+        # one device's, decided from the whole chip's blocks
+        from ..parallel import block_edges as rank_block_edges
+        from ..parallel import mesh_rank, neuron_range
 
         rank, world, _ = mesh_rank(mesh)
-        block_edges, blocks_total = block_edge_owner(
-            c, block_edges, *block_tiling(c.n_neurons), rank, world)
+        block_edges, blocks_total = rank_block_edges(
+            c, block_edges, block_tiling(c.n_neurons)[0],
+            *neuron_range(c.n_neurons, rank, world))
     block = build_block_delivery(c, dtype, device, edge_subset=block_edges)
     kernel_delivery = False
     if block is not None:
@@ -586,8 +573,7 @@ def make_device_program(
         arrays["block_dest_tiles"] = block.dest_tiles
         arrays["block_weights"] = block.weights
         # a conv program never delivers its leftover edges through the
-        # kernel (sanafe_tpu/ops/step.py:942); every rank of a mesh decides
-        # alike, from the whole chip's blocks
+        # kernel (sanafe_tpu/ops/step.py:942)
         kernel_delivery = bool(
             use_kernel and conv_delivery is None and blocks_total > 0
         )
@@ -661,8 +647,6 @@ def make_device_program(
         fused_rollup=fused_rollup,
         dense_delivery=dense_delivery,
         n_stats_cols=n_stats_cols,
-        blocks_total=blocks_total or 0,
-        block_mesh=mesh if block is not None else None,
     )
     if mesh is not None:
         from ..parallel import shard_program
@@ -835,9 +819,9 @@ def _timestep(prog: DeviceProgram, a, state, t: int, feeds=None,
     A sharded program (``prog.shard``, ``parallel.shard_program``) steps
     its rank's neurons: the neuron phase and the scatter path read the
     rank's arrays (``shard.arrays``) and state and ``feeds`` holds its
-    columns; the masks, block delivery and the traced potentials are
-    gathered across the mesh, and the rest of the step runs on the whole
-    masks as on one device."""
+    columns; the masks and the traced potentials are gathered across the
+    mesh, block delivery fills the tiles that hold the rank's neurons, and
+    the rest of the step runs on the whole masks as on one device."""
     feeds = feeds or {}
     c = prog.compiled
     dtype = prog.dtype
@@ -889,8 +873,9 @@ def _timestep(prog: DeviceProgram, a, state, t: int, feeds=None,
             poisson[a["poisson_slots"]] = feeds["poisson"]
             fired_input = fired_input | poisson
         fired = fired | (is_input & fired_input)
+    lanes = range(shard.lo, shard.hi) if shard is not None else range(n)
     plugin_state, plugin_out = _plugin_update(c, a, state, valid, current,
-                                              t)
+                                              t, lanes)
     for spec, (p_fired, p_updated, p_potential) in plugin_out:
         is_this = a["soma_model"] == spec.soma_model_id
         fired = fired | (is_this & p_fired)
@@ -923,7 +908,7 @@ def _timestep(prog: DeviceProgram, a, state, t: int, feeds=None,
         # one strided convolution per conv2d hyperedge, plus block delivery
         # of the leftover edges on top
         buffer_current, any_input = conv_deliver(prog, a, fired_f)
-        if prog.block is not None and prog.blocks_total > 0:
+        if prog.block is not None and prog.block.weights.shape[0] > 0:
             blk_cur, blk_any = _block_deliver(prog, a, fired_f, n)
             buffer_current = buffer_current + blk_cur
             any_input = any_input | blk_any
@@ -999,11 +984,14 @@ def _timestep(prog: DeviceProgram, a, state, t: int, feeds=None,
     return new_state, outputs
 
 
-def _plugin_update(c: CompiledChip, a, state, valid, current, t: int):
+def _plugin_update(c: CompiledChip, a, state, valid, current, t: int,
+                   lanes: range):
     """The plugin soma models' step (sanafe_tpu/ops/step.py:1250-1294).
     Each spec's update runs over every lane; lanes of other models keep
-    their plugin state. A shared-unit spec (``shared_unit_state``) is
-    applied ``stride - 1`` more times, each lane advancing only while
+    their plugin state. ``lanes`` are the chip's neuron indices the
+    tensors hold, passed to a spec registered with ``lanes=True``. A
+    shared-unit spec (``shared_unit_state``) is applied ``stride - 1``
+    more times, each lane advancing only while
     ``stride - 1 > j``: the unit is updated once per member per step, and
     fired/updated come from the first application. Returns the new
     ``plugin_<name>_<var>`` state and, per spec, (spec, (fired, updated,
@@ -1016,18 +1004,19 @@ def _plugin_update(c: CompiledChip, a, state, valid, current, t: int):
                   for param in spec.param_defaults}
         st = {var: state[f"plugin_{spec.name}_{var}"]
               for var in spec.state_init}
+        extra = {"lanes": lanes} if spec.takes_lanes else {}
         if spec.dendrite_compartments > 0:
             comp = state["comp_buffer"][..., : spec.dendrite_compartments]
             st, p_fired, p_updated, p_potential = spec.soma_update(
-                params, st, valid, current, t, comp)
+                params, st, valid, current, t, comp, **extra)
         else:
             st, p_fired, p_updated, p_potential = spec.soma_update(
-                params, st, valid, current, t)
+                params, st, valid, current, t, **extra)
         if spec.shared_unit_state and c.plugin_shared_max_stride > 1:
             stride = a["plugin_shared_stride"]
             for j in range(c.plugin_shared_max_stride - 1):
                 advanced, _, _, _ = spec.soma_update(params, st, valid,
-                                                     current, t)
+                                                     current, t, **extra)
                 st = {var: torch.where(stride - 1 > j, advanced[var], value)
                       for var, value in st.items()}
         for var, value in st.items():
@@ -1183,15 +1172,7 @@ def _segment_sum(values, segment_ids, num_segments):
 def _block_deliver(prog: DeviceProgram, a, fired_f, n: int):
     """Block-dense delivery: returns (buffer_current [n], any_input [n]),
     or ``[B, n]`` each for a ``[B, n]`` batch of fired vectors. A sharded
-    program delivers into its own destination tiles and gathers the
-    other ranks' (every rank holds the whole result)."""
-    cur, arrived = _block_deliver_tiles(prog, a, fired_f, n)
-    if prog.shard is None:
-        return cur, arrived
-    return prog.shard.combine_pair(cur, arrived)
-
-
-def _block_deliver_tiles(prog: DeviceProgram, a, fired_f, n: int):
+    program's blocks fill the tiles that hold its neurons only."""
     blk = prog.block
     dtype = prog.dtype
     if fired_f.dim() > 1:

@@ -10,14 +10,17 @@ killed), fails every test of its mesh. The rank workers import neither jax
 nor sanafe_tpu (this module imports them inside the tests only).
 
 - ``pad_compiled`` array for array against sanafe_tpu's; padding to a
-  multiple of 7 is inert;
+  multiple of 7 is inert; each rank's blocks deliver its neurons as the
+  whole chip's blocks do;
 - ``tests/test_parallel.py::test_sim_sharded_trace_parity`` on
   ``active_chip``: spikes, potentials, perf and messages CSVs byte-identical
   to one process of the port and to sanafe_tpu, counters equal;
 - the conv chip (conv delivery plus the dense head's blocks), the
   stochastic chip (LIF noise stream, Poisson feeds sliced by owner, perf
-  columns) and the delay and multitap chips (the scatter path's per-edge
-  state), sharded: spike, potential and perf CSVs equal to one process;
+  columns), the delay and multitap chips (the scatter path's per-edge
+  state) and the NeuroFEM chip without and with membrane noise (plugin
+  compartments; each rank draws its own neurons' noise), padded at both
+  mesh sizes, sharded: spike, potential and perf CSVs equal to one process;
 - ``test_sim_sharded_resume_checkpoint_and_unshard``: single -> sharded ->
   ``.npz`` round trip -> single, a sharded sanafe_tpu ``.npz`` resumed on
   the mesh, and a ``torch.distributed.checkpoint`` directory round trip on
@@ -39,7 +42,7 @@ import pytest
 import torch
 
 import sanafe_tpu_torch as st
-from sanafe_tpu_torch.parallel import pad_compiled
+from sanafe_tpu_torch.parallel import pad_chip, pad_compiled
 
 from test_torch_chips import (
     active_chip,
@@ -50,6 +53,7 @@ from test_torch_chips import (
     hh_chip,
     low_bulk_threshold,  # noqa: F401 (a fixture)
     multitap_chip,
+    neurofem_chip,
     random_chip,
     stochastic_chip,
 )
@@ -61,12 +65,28 @@ CHUNK = 48
 SEGMENT = 40  # the checkpoint case's three segments
 CHIP_STEPS = 60
 TRACES = ("spikes", "potentials", "perf", "messages")
+
+
+def neurofem_quiet(mod):
+    """37 neurons: padded on a mesh of 2 and of 3."""
+    return neurofem_chip(mod, n_post=25)
+
+
+def neurofem_noisy(mod):
+    return neurofem_chip(mod, n_post=25, sigma_v=0.3)
+
+
 # the chips sharded besides the active chip, each with the traces it has
+# and whether sanafe_tpu draws the same run (the port's NeuroFEM noise is
+# its own stream)
 SHARDED = {
-    "conv": (conv_chip, ("spikes", "perf")),
-    "stochastic": (stochastic_chip, ("spikes", "potentials", "perf")),
-    "delay": (delay_chip, ("spikes", "potentials", "perf")),
-    "multitap": (multitap_chip, ("spikes", "potentials", "perf")),
+    "conv": (conv_chip, ("spikes", "perf"), True),
+    "stochastic": (stochastic_chip, ("spikes", "potentials", "perf"), True),
+    "delay": (delay_chip, ("spikes", "potentials", "perf"), True),
+    "multitap": (multitap_chip, ("spikes", "potentials", "perf"), True),
+    "neurofem": (neurofem_quiet, ("spikes", "potentials", "perf"), True),
+    "neurofem_noisy": (neurofem_noisy, ("spikes", "potentials", "perf"),
+                       False),
 }
 SWEEP_THRESHOLDS = np.linspace(1.0, 4.0, 6)
 HH_CURRENTS = np.linspace(-320.0, -180.0, 6)
@@ -159,10 +179,11 @@ def _rank_main(rank: int, world: int, store: str, out: str, jax_npz: str):
         res["active_sticky"] = chip._mesh is mesh
 
         port_network.BULK_EDGE_THRESHOLD = 1  # conv_chip's structured path
-        for name, (builder, names) in SHARDED.items():
+        for name, (builder, names, _) in SHARDED.items():
             chip = _port(builder)
             r = _sim_traces(chip, out / name, names, CHIP_STEPS, mesh=mesh)
             res[name] = _summary(r)
+            res[f"{name}_n"] = chip._padded_for(mesh).n_neurons
             if name == "conv":
                 prog = next(iter(chip._engines.values())).prog
                 res["conv_route"] = prog.conv_delivery is not None
@@ -277,7 +298,7 @@ def single(tmp_path_factory):
     old = port_network.BULK_EDGE_THRESHOLD
     port_network.BULK_EDGE_THRESHOLD = 1
     try:
-        for name, (builder, names) in SHARDED.items():
+        for name, (builder, names, _) in SHARDED.items():
             results[name] = _summary(_sim_traces(
                 _port(builder), out / name, names, CHIP_STEPS))
     finally:
@@ -335,15 +356,16 @@ def test_pad_compiled_matches_jax(name, low_bulk_threshold):
 
 
 def test_padding_to_seven_is_inert():
-    """A program of the chip padded to a multiple of 7 gives the unpadded
-    program's stats and masks (cut to the real neurons)."""
+    """A program of the chip padded to a multiple of 7 (``pad_chip``: the
+    perf columns and the shared-unit ranks and strides too) gives the
+    unpadded program's stats and masks (cut to the real neurons)."""
     from sanafe_tpu_torch.compile import compile_chip
     from sanafe_tpu_torch.ops.scan import run_scan
     from sanafe_tpu_torch.ops.step import make_device_program
 
-    for builder in (example_chip, active_chip, stochastic_chip):
+    for builder in (example_chip, active_chip, stochastic_chip, hh_chip):
         c = compile_chip(*builder(st))
-        padded = pad_compiled(c, 7)
+        padded = pad_chip(c, 7)
         assert padded.n_neurons % 7 == 0 and padded.n_neurons > c.n_neurons
         outs = []
         for compiled in (c, padded):
@@ -361,6 +383,48 @@ def test_padding_to_seven_is_inert():
         assert torch.equal(outs[0]["masks_packed"],
                            outs[1]["masks_packed"][:, :, :nb])
         assert outs[0]["stats"][:, 4].sum() > 0
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_block_edges_deliver_each_rank_whole(world):
+    """A rank's blocks (the tiles that hold its neurons, ``block_edges``)
+    deliver its neurons' currents and arrival bits bit for bit as the
+    whole chip's blocks do, while a rank whose neurons span one tile
+    builds that tile's blocks only; the route count is the chip's."""
+    from sanafe_tpu_torch.compile import compile_chip
+    from sanafe_tpu_torch.ops.delivery import delivery_plain
+    from sanafe_tpu_torch.ops.step import block_tiling, build_block_delivery
+    from sanafe_tpu_torch.parallel import block_edges, neuron_range
+
+    c = pad_chip(compile_chip(*random_chip(st)), world)
+    tile, n_tiles = block_tiling(c.n_neurons)
+    assert n_tiles == 2
+    fired = torch.from_numpy(
+        (np.random.default_rng(world).random(n_tiles * tile) < 0.5)
+        .astype(np.float64)).view(n_tiles, tile)
+
+    def deliver(blk):
+        cur, cnt = delivery_plain(fired, blk.weights, blk.counts,
+                                  blk.src_tiles, blk.dest_offsets,
+                                  blk.max_blocks_per_dest)
+        return cur.reshape(-1), cnt.reshape(-1) > 0
+
+    whole = build_block_delivery(c, torch.float64, "cpu")
+    want_cur, want_any = deliver(whole)
+    tiles_built = []
+    for rank in range(world):
+        lo, hi = neuron_range(c.n_neurons, rank, world)
+        owned, total = block_edges(c, None, tile, lo, hi)
+        assert total == whole.weights.shape[0]
+        blk = build_block_delivery(c, torch.float64, "cpu",
+                                   edge_subset=owned)
+        cur, arrived = deliver(blk)
+        assert torch.equal(cur[lo:hi].view(torch.int64),
+                           want_cur[lo:hi].view(torch.int64))
+        assert torch.equal(arrived[lo:hi], want_any[lo:hi])
+        tiles_built.append(set(blk.dest_tiles.tolist()))
+    assert tiles_built[0] == {0}
+    assert set().union(*tiles_built) == {0, 1}
 
 
 def test_exchange_keeps_every_bit(ranks):
@@ -395,22 +459,29 @@ def test_sim_sharded_trace_parity(ranks, single):
 
 @pytest.mark.parametrize("name", sorted(SHARDED))
 def test_sharded_chips_match_one_process(ranks, single, name):
-    """Conv delivery, host feeds cut by owner, delay rings and multitap
-    cables on the mesh: every trace byte-identical to one process of the
-    port, counters equal to sanafe_tpu's."""
+    """Conv delivery, host feeds cut by owner, delay rings, multitap
+    cables, plugin compartments and per-neuron noise on the mesh: every
+    trace byte-identical to one process of the port, counters equal to
+    sanafe_tpu's where it draws the same run."""
     import sanafe_tpu as sf
     import sanafe_tpu.network as jax_network
 
-    _, out, res = ranks
+    world, out, res = ranks
     base, singles = single
     assert_same_run(singles[name], res[name])
     assert res[name]["neurons_fired"] > 0
     if name == "conv":
         assert res["conv_route"]
-    builder, names = SHARDED[name]
+    if name.startswith("neurofem"):
+        assert res[f"{name}_n"] > 37  # padded
+    builder, names, same_in_jax = SHARDED[name]
     for trace in names:
         assert (out / name / f"{trace}.csv").read_bytes() == (
             base / name / f"{trace}.csv").read_bytes(), trace
+    if not same_in_jax:
+        quiet = (base / "neurofem" / "potentials.csv").read_bytes()
+        assert (out / name / "potentials.csv").read_bytes() != quiet
+        return
     old = jax_network.BULK_EDGE_THRESHOLD
     jax_network.BULK_EDGE_THRESHOLD = 1
     try:
