@@ -183,7 +183,29 @@ own line:
    4096-neuron HH chip (stride 32) with 3 samples of thresholds and
    stimulation currents, 20 steps, each sample equal to a single chip on
    the card started from the same state (counters exact, energies and
-   sim_time within 1e-6 relative).
+   sim_time within 1e-6 relative);
+18. the step scan and the sweep's scan as CUDA graphs, each route captured
+   (the default on the card) and eager (SANAFE_TPU_GRAPH=0) in this call:
+   the full chip in float32, the 4096-neuron chip in float64 (200 steps
+   each) and the full-width Hodgkin-Huxley chip (20 steps), each program
+   with every output recorded run once to capture its blocks and again
+   replaying ceil(steps / 16) of them, against the eager scan on the same
+   arrays: masks, stats rows, logged potentials and the final state bit
+   for bit and the launch counts equal; then through SpikingChip, simple,
+   after a warm run: the results and launch counts equal, the captured
+   run ceil(steps / 16) replays, and for each mode steps/s, host and
+   device ms a step (a profiled window), the busy share, device ops a
+   step and the replays (and a replay's device ms back to back); the
+   16-sample threshold sweep of full, 200 steps, captured and eager:
+   every sample's counters, energies and sim_time bit for bit, one
+   batched-kernel launch a step, ceil(200 / 16) replays, samples x
+   steps/s and the same per-mode numbers.
+
+Phases 6, 13 and 15, and phase 12's route through the delivery kernel,
+run their scans eagerly (SANAFE_TPU_GRAPH=0 while their programs build):
+their per-call holds intercept the kernel wrappers, which a replayed
+graph does not call, and their numbers stay comparable with earlier runs.
+The other phases' scans replay graphs, the default.
 
 It prints the kernels' JSON record and the card's name and power limit on
 the lines before the last, and as the last line {"ok": true, "device":
@@ -199,6 +221,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -263,6 +286,11 @@ HH_SWEEP_SCALES = (0.5, 1.0, 1.5, 2.0)
 HH_SWEEP_STEPS = 20
 HH_MID_SCALES = (0.5, 1.0, 1.5)  # mid HH: thresholds and currents x these
 HH_MID_STEPS_SWEEP = 20
+# phase 18: each route captured and eager
+GRAPH_STEPS = 200
+GRAPH_PROFILE_STEPS = 64  # a multiple of the graphs' unroll: no new capture
+GRAPH_HH_STEPS = 20
+WRAPPER_CALLS = 200
 # arch_hh.yaml's soma costs (tests/golden_ref/fixtures/arch_hh.yaml)
 HH_COSTS = {
     "energy_access_neuron": 20.0e-12, "latency_access_neuron": 3.0e-9,
@@ -1088,7 +1116,9 @@ def dvs_phase(st, cuda, card, tmp: Path) -> dict:
 
     # --- 12c. one raster through every route; each route's steps/s ---
     routes = (("dag", cuda, {}), ("scan_conv", cuda, {"SANAFE_TPU_DAG": "0"}),
-              ("scan_delivery_kernel", cuda, {"SANAFE_CONV_DELIVERY": "0"}),
+              # eager: its delivery kernel's calls are held one by one
+              ("scan_delivery_kernel", cuda, {"SANAFE_CONV_DELIVERY": "0",
+                                              "SANAFE_TPU_GRAPH": "0"}),
               ("dag_cpu", "cpu", {}))
     # the delivery kernel's arguments and results on every step of the
     # SANAFE_CONV_DELIVERY=0 trace run, held to its plain version below
@@ -1778,24 +1808,30 @@ def hold_batch(x, weights, arrivals, blk, live, name: str,
 def sweep_plane(sweep, steps: int, busiest: bool = False):
     """The [B, n_tiles, tile] fired planes that the sweep's batched
     delivery takes at step ``steps`` of a run from the start (a run of
-    ``steps`` steps through ``ops/step.py``'s wrapper); with ``busiest``,
-    those of the step of the run that fired the most."""
+    ``steps`` steps through ``ops/step.py``'s wrapper, eager: a replayed
+    graph calls no wrapper); with ``busiest``, those of the step of the
+    run that fired the most."""
+    import dataclasses
+
     from sanafe_tpu_torch.ops import step as step_mod
 
-    kernel = step_mod.delivery_batch_kernel
+    kernel = step_mod.delivery_batch_launch
+    prog = sweep.prog
     seen = []
 
-    def record(x, *args):
+    def record(x, plan):
         if not busiest or not seen or int(x.count_nonzero()) > int(
                 seen[0].count_nonzero()):
             seen[:] = [x.clone()]
-        return kernel(x, *args)
+        return kernel(x, plan)
 
-    step_mod.delivery_batch_kernel = record
+    step_mod.delivery_batch_launch = record
+    sweep.prog = dataclasses.replace(prog, graph=False)
     try:
         sweep.run(steps)
     finally:
-        step_mod.delivery_batch_kernel = kernel
+        step_mod.delivery_batch_launch = kernel
+        sweep.prog = prog
     return seen[0]
 
 
@@ -2723,6 +2759,307 @@ def plugin_sweep_phase(st, device, card, hh_single: dict) -> None:
           f"and sim_time within {REL_TOL}); launches {counts} OK | {card}",
           flush=True)
 
+# --- phase 18: the step scan and the sweep's scan as CUDA graphs -----------
+
+@contextmanager
+def graph_knob(value: str):
+    """``SANAFE_TPU_GRAPH`` set to ``value`` while the programs built inside
+    read it ("0": eager)."""
+    saved = os.environ.get("SANAFE_TPU_GRAPH")
+    os.environ["SANAFE_TPU_GRAPH"] = value
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("SANAFE_TPU_GRAPH", None)
+        else:
+            os.environ["SANAFE_TPU_GRAPH"] = saved
+
+
+def hold_captured(prog, steps: int, name: str) -> str:
+    """The program ``prog`` (built to replay graphs, every output recorded)
+    run ``steps`` steps from its initial state through its graphs, once
+    to capture them and once replaying ceil(steps / unroll) blocks, and
+    eagerly on the same arrays: every output and the final state bit for
+    bit and the launch counts equal. Returns a summary for the phase's
+    line."""
+    import dataclasses
+
+    import torch
+
+    from sanafe_tpu_torch.ops.scan import GRAPH_UNROLL, ScanGraphs, run_scan
+
+    check(prog.graph, f"{name}: the program does not replay graphs")
+    graphs = ScanGraphs(prog, prog.arrays)
+    # a first run captures each block size (its first block of each size
+    # runs eagerly meanwhile); the second replays every block
+    run_scan(prog, prog.init_state(), 1, steps, graphs=graphs)
+    replays = graphs.replays
+    runs = {}
+    for label, p, g in (("captured", prog, graphs),
+                        ("eager", dataclasses.replace(prog, graph=False),
+                         None)):
+        reset_counts()
+        state, out = run_scan(p, p.init_state(), 1, steps, graphs=g)
+        torch.cuda.synchronize()
+        runs[label] = (state, out, read_counts())
+    replays = graphs.replays - replays
+    (c_state, c_out, c_counts), (e_state, e_out, e_counts) = (
+        runs["captured"], runs["eager"])
+    check(sorted(c_out) == sorted(e_out), f"{name}: output keys")
+    for key in e_out:
+        check(same_bits(c_out[key], e_out[key]),
+              f"{name}: captured {key} differs from the eager scan's")
+    for key in e_state:
+        check(same_bits(c_state[key], e_state[key]),
+              f"{name}: captured state {key} differs from the eager scan's")
+    check(c_counts == e_counts, f"{name}: launches {c_counts} captured, "
+          f"{e_counts} eager")
+    sizes = {GRAPH_UNROLL} | ({steps % GRAPH_UNROLL} - {0})
+    check(replays == -(-steps // GRAPH_UNROLL)
+          and set(graphs.blocks) == sizes,
+          f"{name}: {replays} replays of blocks {set(graphs.blocks)}")
+    fired = int(e_out["stats"][:, 4].sum())
+    return (f"{name} {steps} steps: {sorted(e_out)} and the state "
+            f"{sorted(e_state)} bit for bit ({fired} fired), launches "
+            f"{c_counts}, {replays} replays of blocks of "
+            f"{sorted(graphs.blocks)} steps")
+
+
+def graph_pair(make, steps: int, profile_steps: int, name: str) -> dict:
+    """``make()`` (a loaded SpikingChip) captured and eager (the knob read
+    when its programs build): a warm run, then ``steps`` steps simple
+    timed and ``profile_steps`` profiled. The two runs' results are
+    equal, the launch counts too, and the captured run replays
+    ceil(steps / unroll) blocks. Returns each mode's numbers."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from sanafe_tpu_torch.ops.scan import GRAPH_UNROLL
+
+    modes = {}
+    for mode, knob in (("captured", "1"), ("eager", "0")):
+        with graph_knob(knob):
+            chip = make()
+            chip.sim(steps, timing_model="simple", heartbeat=0)  # warm
+            torch.cuda.synchronize()
+            reset_counts()
+            replays = chip.graph_replays
+            start = time.perf_counter()
+            result = chip.sim(steps, timing_model="simple", heartbeat=0)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - start
+            counts = read_counts()
+            replays = chip.graph_replays - replays
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                start = time.perf_counter()
+                chip.sim(profile_steps, timing_model="simple", heartbeat=0)
+                torch.cuda.synchronize()
+                t_prof = time.perf_counter() - start
+            device_us, top = device_busy(prof)
+            row = {
+                "steps_s": steps / wall, "host_ms": wall / steps * 1e3,
+                "device_ms": device_us / profile_steps * 1e-3,
+                "busy": (device_us * 1e-6 / t_prof if device_us
+                         else "not measured"),
+                "ops": device_ops(prof) / profile_steps,
+                "replays": replays, "launches": counts,
+                "top": top[:3],
+            }
+            (engine,) = [e for e in chip._engines.values()
+                         if e.name == "scan"]
+            check(engine.prog.graph == (mode == "captured"),
+                  f"{name}: the {mode} chip's program")
+            if mode == "captured":
+                block = engine.graphs.blocks[GRAPH_UNROLL].graph
+                row["replay_ms"] = cuda_ms(block.replay, 4) / GRAPH_UNROLL
+                # the runner alone, without the rest of sim()
+                state = dict(chip._device_state)
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                engine.graphs.run(state, chip.total_timesteps + 1, steps, {})
+                torch.cuda.synchronize()
+                row["run_ms"] = (time.perf_counter() - start) / steps * 1e3
+            row["result"] = {k: v for k, v in result.items()
+                             if not k.endswith("_trace")}
+            modes[mode] = row
+            del chip, engine, prof
+            torch.cuda.empty_cache()
+    cap, eag = modes["captured"], modes["eager"]
+    check(cap["result"] == eag["result"],
+          f"{name}: captured {cap['result']} vs eager {eag['result']}")
+    check(cap["result"]["neurons_fired"] > 0, f"{name}: nothing fired")
+    check(cap["launches"] == eag["launches"]
+          and cap["launches"]["delivery_kernel"] == steps,
+          f"{name}: launches {cap['launches']} captured, "
+          f"{eag['launches']} eager")
+    check(cap["replays"] == -(-steps // GRAPH_UNROLL) and eag["replays"] == 0,
+          f"{name}: {cap['replays']} replays captured, {eag['replays']} "
+          "eager")
+    return modes
+
+
+def graph_line(name: str, steps: int, modes: dict, card: str,
+               unit: str = "steps/s", scale: int = 1) -> None:
+    parts = []
+    for mode, row in modes.items():
+        extra = (f", back-to-back replays {row['replay_ms']} ms a step"
+                 if "replay_ms" in row else "")
+        if "run_ms" in row:
+            extra += f", the graphs' chunk alone {row['run_ms']} ms a step"
+        parts.append(
+            f"{mode} {row['steps_s'] * scale} {unit} (host "
+            f"{row['host_ms']} ms a step, device {row['device_ms']} ms a "
+            f"step by the profiler{extra}, busy share {row['busy']}, "
+            f"{row['ops']} device ops a step, {row['replays']} replays, "
+            f"launches {row['launches']}, top device ops {row['top']})")
+    speedup = modes["captured"]["steps_s"] / modes["eager"]["steps_s"]
+    print(f"graph_timing: {name} simple {steps} steps after a warm run: "
+          f"{'; '.join(parts)}; captured / eager {speedup}; results equal "
+          f"| {card}", flush=True)
+
+
+def batch_wrapper_us(sweep, cuda) -> dict:
+    """Host microseconds a call of the sweep's batched delivery enqueued
+    back to back: ``delivery_batch_kernel``, which checks every operand
+    and asks the library for its shared memory on each call, against
+    ``delivery_batch_launch`` on the sweep's plan (checked once)."""
+    import torch
+
+    from sanafe_tpu_torch.ops import delivery
+
+    a, blk = sweep.arrays, sweep.prog.block
+    x = batch_planes(blk, sweep.compiled.n_neurons, sweep.batch,
+                     torch.float32, cuda)
+    args = (a["block_weights"], a["block_arrivals"], blk.src_tiles,
+            blk.dest_offsets, blk.max_blocks_per_dest, a["block_live_rows"])
+    calls = {
+        "delivery_batch_kernel": lambda: delivery.delivery_batch_kernel(
+            x, *args),
+        "delivery_batch_launch": lambda: delivery.delivery_batch_launch(
+            x, a["block_batch_plan"]),
+    }
+    out = {}
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for _ in range(WRAPPER_CALLS):
+            fn()
+        out[name] = (time.perf_counter() - start) / WRAPPER_CALLS * 1e6
+        torch.cuda.synchronize()
+    return out
+
+
+def graph_phase(st, cuda, card) -> None:
+    """Phase 18 (module docstring)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from sanafe_tpu_torch.ops.scan import GRAPH_UNROLL
+    from sanafe_tpu_torch.ops.step import make_device_program
+
+    start = time.perf_counter()
+
+    def loaded(builder, dtype, **kw):
+        arch, net = builder(st, **kw)
+        chip = st.SpikingChip(arch, device=cuda, dtype=dtype)
+        chip.load(net)
+        return chip
+
+    # --- 18a. full float32, mid float64, full_hh: bits, then timing ---
+    cases = (
+        ("full f32", lambda: loaded(random_chip, torch.float32, **FULL),
+         torch.float32, GRAPH_STEPS, GRAPH_PROFILE_STEPS),
+        ("mid f64", lambda: loaded(random_chip, torch.float64, **MID),
+         torch.float64, GRAPH_STEPS, GRAPH_PROFILE_STEPS),
+        ("full_hh f32", lambda: loaded(hh_chip, torch.float32, **FULL),
+         torch.float32, GRAPH_HH_STEPS, GRAPH_UNROLL),
+    )
+    for name, make, dtype, steps, profile_steps in cases:
+        chip = make()
+        prog = make_device_program(chip.compiled, cuda, dtype, **FLAGS)
+        held = hold_captured(prog, steps, name)
+        print(f"graph_equal: {held} OK | {card}", flush=True)
+        del chip, prog
+        torch.cuda.empty_cache()
+        graph_line(name, steps, graph_pair(make, steps, profile_steps, name),
+                   card)
+
+    # --- 18b. the 16-sample threshold sweep of full ---
+    chip = loaded(random_chip, torch.float32, **FULL)
+    values = np.linspace(0.5, 4.0, PARAM_SAMPLES) * float(
+        chip.compiled.threshold[0])
+    over = {"threshold": st.expand_group_values(chip.compiled, "threshold",
+                                                {"pop": values})}
+    modes, outs = {}, {}
+    for mode, knob in (("captured", "1"), ("eager", "0")):
+        with graph_knob(knob):
+            sweep = st.ParameterSweep(chip, over)
+        check((sweep.graphs is not None) == (mode == "captured"),
+              f"full sweep: the {mode} sweep's graphs")
+        sweep.run(GRAPH_STEPS)  # warm
+        torch.cuda.synchronize()
+        reset_counts()
+        replays = sweep.graphs.replays if sweep.graphs else 0
+        t = time.perf_counter()
+        outs[mode] = sweep.run(GRAPH_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = read_counts()
+        replays = (sweep.graphs.replays if sweep.graphs else 0) - replays
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            sweep.run(GRAPH_PROFILE_STEPS)
+            torch.cuda.synchronize()
+            t_prof = time.perf_counter() - t
+        device_us, top = device_busy(prof)
+        modes[mode] = {
+            "steps_s": GRAPH_STEPS / wall,
+            "host_ms": wall / GRAPH_STEPS * 1e3,
+            "device_ms": device_us / GRAPH_PROFILE_STEPS * 1e-3,
+            "busy": (device_us * 1e-6 / t_prof if device_us
+                     else "not measured"),
+            "ops": device_ops(prof) / GRAPH_PROFILE_STEPS,
+            "replays": replays, "launches": counts, "top": top[:3],
+        }
+        if sweep.graphs is not None:
+            block = sweep.graphs.blocks[GRAPH_UNROLL].graph
+            modes[mode]["replay_ms"] = cuda_ms(block.replay,
+                                               4) / GRAPH_UNROLL
+            wrapper_us = batch_wrapper_us(sweep, cuda)
+        del sweep, prof
+        torch.cuda.empty_cache()
+    cap, eag = outs["captured"], outs["eager"]
+    for key in COUNTERS + ("sim_time",):
+        check(np.array_equal(cap[key], eag[key]),
+              f"full sweep: captured {key} differs from eager")
+    for key in eag["energy"]:
+        check(np.array_equal(cap["energy"][key], eag["energy"][key]),
+              f"full sweep: captured energy {key} differs from eager")
+    check(len(set(cap["neurons_fired"].tolist())) > 1,
+          "full sweep: the samples' activity is all equal")
+    for mode in modes.values():
+        check(mode["launches"]["delivery_batch_kernel"] == GRAPH_STEPS
+              and mode["launches"]["delivery_kernel"] == 0,
+              f"full sweep: launches {mode['launches']}")
+    check(modes["captured"]["replays"] == -(-GRAPH_STEPS // GRAPH_UNROLL),
+          f"full sweep: {modes['captured']['replays']} replays")
+    print(f"graph_equal: full {PARAM_SAMPLES}-sample threshold sweep "
+          f"{GRAPH_STEPS} steps: counters, energies and sim_time of every "
+          f"sample bit for bit OK | {card}", flush=True)
+    graph_line(f"full {PARAM_SAMPLES}-sample sweep", GRAPH_STEPS, modes,
+               card, unit="samples x steps/s", scale=PARAM_SAMPLES)
+    print(f"graph_wrapper: the batched delivery's host us a call, back to "
+          f"back ({WRAPPER_CALLS} calls enqueued on full's blocks, 16 "
+          f"planes): {wrapper_us} | {card}", flush=True)
+    del chip
+    torch.cuda.empty_cache()
+    print(f"phase 18: {time.perf_counter() - start} s", flush=True)
+
+
 def main() -> int:
     import argparse
 
@@ -2976,7 +3313,9 @@ def run(tmp: Path, through=None) -> int:
     arch, net = random_chip(st, **FULL)
     chip = st.SpikingChip(arch, device=cuda)
     chip.load(net)
-    warm = chip.sim(10, heartbeat=0)  # builds the simple program
+    # eager, as before graphs (phase 18 pairs captured and eager runs)
+    with graph_knob("0"):
+        warm = chip.sim(10, heartbeat=0)  # builds the simple program
     torch.cuda.synchronize()
     t = time.perf_counter()
     simple = chip.sim(SCAN_SIMPLE_STEPS, heartbeat=0)
@@ -2998,8 +3337,9 @@ def run(tmp: Path, through=None) -> int:
                   "setup": "setup_wall"}
     before = {k: getattr(chip, v) for k, v in wall_names.items()}
     t = time.perf_counter()
-    det = chip.sim(SCAN_DETAILED_STEPS, timing_model="detailed",
-                   spike_trace=spikes_csv, heartbeat=0)
+    with graph_knob("0"):  # builds the detailed program
+        det = chip.sim(SCAN_DETAILED_STEPS, timing_model="detailed",
+                       spike_trace=spikes_csv, heartbeat=0)
     torch.cuda.synchronize()
     t_det = time.perf_counter() - t
     chip.close()
@@ -3221,13 +3561,16 @@ def run(tmp: Path, through=None) -> int:
                          card)
     level = dvs_phase(st, cuda, card, tmp)
     del full_compiled, mid_compiled
-    hh_single = hh_phase(st, cuda, card)
+    with graph_knob("0"):  # eager, as before graphs (phase 18 pairs them)
+        hh_single = hh_phase(st, cuda, card)
     prefix = fixtures_phase(st, cuda, card, tmp)
-    batch = sweep_phase(st, cuda, card, full_step50, single_full)
+    with graph_knob("0"):
+        batch = sweep_phase(st, cuda, card, full_step50, single_full)
     start = time.perf_counter()
     mesh_phase(st, cuda, card, tmp, batch.pop("sweep"))
     plugin_sweep_phase(st, cuda, card, hh_single)
     print(f"phases 16-17: {time.perf_counter() - start} s", flush=True)
+    graph_phase(st, cuda, card)
 
     print(json.dumps({"kernels": [
         {

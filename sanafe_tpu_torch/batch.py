@@ -61,10 +61,14 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .ops.conv import full_float32_matmul, hwio_to_oihw
-from .ops.dag_chunk import rollup_stats
-from .ops.delivery import build_live_rows, pack_arrival_plane
-from .ops.step import _timestep, initial_state, make_device_program
+from .ops.conv import hwio_to_oihw
+from .ops.delivery import (
+    build_live_rows,
+    pack_arrival_plane,
+    plan_delivery_batch,
+)
+from .ops.scan import ScanGraphs, run_scan
+from .ops.step import initial_state, make_device_program
 
 __all__ = ["ParameterSweep", "expand_group_values"]
 
@@ -137,7 +141,10 @@ class ParameterSweep:
         ``DeviceMesh`` (anything else raises ``TypeError``), splits the
         samples over its ranks (module docstring); the sample count must
         divide its size. ``mesh_axis`` names its dimension (default: its
-        only one)."""
+        only one). On the card the sweep's step scan replays CUDA graphs
+        (``self.graphs``, ``ops/scan.py:ScanGraphs``), also on a mesh (a
+        sweep's step has no collective); it runs eagerly where
+        ``SANAFE_TPU_GRAPH=0`` is set when the sweep is built."""
         if mesh is not None:
             from .parallel import check_mesh
 
@@ -234,49 +241,44 @@ class ParameterSweep:
             else:
                 self.arrays[name] = values
         if prog.kernel_delivery:
-            # the rows the kernel reads: those with an edge in any sample
-            self.arrays["block_live_rows"] = build_live_rows(
-                self.arrays["block_weights"], self.arrays["block_arrivals"])
+            # the rows the kernel reads: those with an edge in any sample;
+            # and the kernel's operands, checked once for every step
+            live = build_live_rows(self.arrays["block_weights"],
+                                   self.arrays["block_arrivals"])
+            self.arrays["block_live_rows"] = live
+            blk = prog.block
+            self.arrays["block_batch_plan"] = plan_delivery_batch(
+                hi - lo, self.arrays["block_weights"],
+                self.arrays["block_arrivals"], blk.src_tiles,
+                blk.dest_offsets, blk.max_blocks_per_dest, live)
+        # the step scan's graphs, captured at the first run (prog.graph)
+        self.graphs = ScanGraphs(prog, self.arrays) if prog.graph else None
 
     def run(self, timesteps: int, chunk: int = 4096) -> dict:
         """Run ``timesteps`` steps for every sample; returns ``[B]``-shaped
         aggregates mirroring ``SpikingChip.sim()``'s result keys.
 
-        One Python loop a chunk, as ``ops/scan.py:run_scan``: the stats are
-        summed on the device and copied to the host once a chunk."""
+        One ``ops/scan.py:run_scan`` a chunk (on the card its CUDA graphs,
+        ``self.graphs``, captured at the first run): the stats are summed
+        on the device and copied to the host once a chunk."""
         lo, hi = self.samples
         prog = self.prog
-        a = self.arrays
-        dev = self.device
-        defer = prog.fused_rollup and not prog.dense_delivery
-        state = initial_state(self.compiled, prog.dtype, dev, batch=hi - lo)
+        state = initial_state(self.compiled, prog.dtype, self.device,
+                              batch=hi - lo)
         counters = np.zeros((hi - lo, 5), dtype=np.int64)
         energies = np.zeros((hi - lo, 6), dtype=np.float64)
         t = 1
         remaining = timesteps
-        with full_float32_matmul():
-            while remaining > 0:
-                length = min(chunk, remaining)
-                steps: dict[str, list] = {}
-                for j in range(length):
-                    state, out = _timestep(prog, a, state, t + j,
-                                           defer_rollup=defer)
-                    for key in ("stats", "fired_plane", "upd_plane"):
-                        if key in out:
-                            steps.setdefault(key, []).append(out[key])
-                if defer:
-                    stats, _ = rollup_stats(
-                        prog, a, torch.stack(steps["fired_plane"]).to(
-                            prog.dtype),
-                        torch.stack(steps["upd_plane"]).to(prog.dtype))
-                else:
-                    stats = torch.stack(steps["stats"])  # [T, B, 11]
-                stats = stats.to(torch.float64)
-                counters += torch.round(stats[:, :, :5]).to(
-                    torch.int64).sum(dim=0).cpu().numpy()
-                energies += stats[:, :, 5:11].sum(dim=0).cpu().numpy()
-                t += length
-                remaining -= length
+        while remaining > 0:
+            length = min(chunk, remaining)
+            state, out = run_scan(prog, state, t, length, graphs=self.graphs,
+                                  arrays=self.arrays)
+            stats = out["stats"].to(torch.float64)  # [T, B, 11]
+            counters += torch.round(stats[:, :, :5]).to(
+                torch.int64).sum(dim=0).cpu().numpy()
+            energies += stats[:, :, 5:11].sum(dim=0).cpu().numpy()
+            t += length
+            remaining -= length
         if self.mesh is not None:
             counters, energies = self._gather(counters, energies)
         return {

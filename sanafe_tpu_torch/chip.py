@@ -16,7 +16,11 @@ of three device engines, chosen as sanafe_tpu's ``_make_chunk_runner`` and
 - the step scan (``ops/scan.py``) for every other chip, for the perf trace,
   for float64 on CUDA and for the device sweep, with block delivery through
   the CUDA delivery kernel on the card (``ops/delivery.py``) and conv
-  delivery by strided convolutions (``ops/conv.py``).
+  delivery by strided convolutions (``ops/conv.py``). On the card a chunk
+  of the scan replays CUDA graphs of ``ops/scan.py:GRAPH_UNROLL`` steps,
+  captured at the engine's first chunk (``chip.graph_replays`` counts the
+  replays); ``SANAFE_TPU_GRAPH=0``, read when a program is built, keeps
+  it eager, and a sharded chip always is.
 
 Detailed timing is swept on the host by default (the native C++ scheduler,
 OpenMP across a chunk's steps). ``sim(device_sweep=True)`` (or
@@ -74,7 +78,7 @@ from .ops.chunk import (
 )
 from .ops.dag_chunk import make_dag_body, plan_dag, run_dag
 from .ops.merge_sweep import default_merge_cap, make_merge_sweep
-from .ops.scan import run_scan
+from .ops.scan import ScanGraphs, run_scan
 from .ops.step import DeviceProgram, initial_state, make_device_program
 from .parallel import state_neuron_dim
 from .ops.timing import (
@@ -273,12 +277,16 @@ class _TraceState:
 class _Engine:
     """One device program with the engine that runs its chunks: the
     whole-chunk engine (its plan and device operands), the DAG engine (its
-    body) or, with both None, the step scan."""
+    body) or, with both None, the step scan, with its CUDA graphs where the
+    program replays them (``graphs``, captured at the first chunk; dropped
+    with the engine when ``_invalidate_programs`` clears the engines, so
+    no graph outlives the arrays it reads)."""
 
     prog: DeviceProgram
     plan: Any = None
     mats: Optional[dict] = None
     dag: Any = None
+    graphs: Optional[ScanGraphs] = None
     # "chunk_kernel", "chunk_plain", "dag" or "scan": result["device_engine"]
     name: str = "scan"
 
@@ -427,6 +435,8 @@ class SpikingChip:
         # host seconds and count of this rank's collectives in its steps
         self.exchange_wall = 0.0
         self.exchanges = 0
+        # CUDA graph replays of the step scan (ops/scan.py:ScanGraphs)
+        self.graph_replays = 0
 
     # --- loading -------------------------------------------------------------
     def load(self, net: SpikingNetwork, overwrite: bool = False) -> None:
@@ -1036,7 +1046,8 @@ class SpikingChip:
             engine = _Engine(prog, dag=make_dag_body(prog, dag_plan),
                              name="dag")
         elif plan is None:
-            engine = _Engine(prog, name="scan")
+            engine = _Engine(prog, name="scan", graphs=(
+                ScanGraphs(prog, prog.arrays) if prog.graph else None))
         else:
             engine = _Engine(
                 prog, plan, chunk_tensors(plan, self.device),
@@ -1081,9 +1092,13 @@ class SpikingChip:
         if plan is None:
             shard = prog.shard
             before = (shard.exchange_s, shard.exchanges) if shard else None
+            replays = engine.graphs.replays if engine.graphs else 0
             self._device_state, outputs = run_scan(
-                prog, self._device_state, t0, length, feeds, sweep
+                prog, self._device_state, t0, length, feeds, sweep,
+                graphs=engine.graphs,
             )
+            if engine.graphs is not None:
+                self.graph_replays += engine.graphs.replays - replays
             if shard is not None:
                 self.exchange_wall += shard.exchange_s - before[0]
                 self.exchanges += shard.exchanges - before[1]

@@ -70,6 +70,7 @@
 
 #include <cstdint>
 
+#include "kernel_attrs.cuh"
 #include "lif_update.cuh"
 
 namespace cg = cooperative_groups;
@@ -520,13 +521,13 @@ int sanafe_chunk_launch(
                        (size_t)P_USED * npad + 2 * (size_t)m_cols +
                        2 * (size_t)npad) +
       sizeof(int) * (4 * (size_t)npad + kWarps + (size_t)n_log);
-  err = cudaFuncSetAttribute(chunk_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
+  err = sanafe::reserve_smem(reinterpret_cast<const void*>(&chunk_kernel),
+                             smem);
   if (err != cudaSuccess) return err;
   if (cluster > 8) {
-    err = cudaFuncSetAttribute(
-        chunk_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    err = sanafe::set_kernel_attribute(
+        reinterpret_cast<const void*>(&chunk_kernel),
+        cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return err;
   }
   cudaLaunchAttribute attr;

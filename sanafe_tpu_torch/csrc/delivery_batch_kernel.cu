@@ -75,6 +75,8 @@
 
 #include <cstdint>
 
+#include "kernel_attrs.cuh"
+
 namespace {
 
 constexpr int kWarp = 32;
@@ -584,9 +586,9 @@ cudaError_t launch_main(const Plan& p, const void* w, const void* arrive,
                         const void* masks, void* out_cur, void* out_arrived,
                         int batch, int n_tiles, int tile, int blk_cap,
                         cudaStream_t stream) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      batch_kernel<T, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(p.smem));
+  const cudaError_t err = sanafe::reserve_smem(
+      reinterpret_cast<const void*>(&batch_kernel<T, S>),
+      static_cast<size_t>(p.smem));
   if (err != cudaSuccess) return err;
   const dim3 grid(n_tiles, p.passes);
   batch_kernel<T, S><<<grid, threads_for<S>(), p.smem, stream>>>(

@@ -59,6 +59,8 @@
 
 #include <cstdint>
 
+#include "kernel_attrs.cuh"
+
 namespace {
 
 constexpr int kWarps = 8;     // warps per CTA of the main kernel
@@ -315,9 +317,8 @@ cudaError_t launch_main(const void* w, const void* arrive, const void* src_tiles
   const size_t tail = static_cast<size_t>(kWarps) * kMaxTile * sizeof(T) +
                       kWarps * (kMaxTile / 32) * 4;
   const size_t smem = ring > tail ? ring : tail;
-  const cudaError_t err = cudaFuncSetAttribute(
-      delivery_kernel<T, CPL, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  const cudaError_t err = sanafe::reserve_smem(
+      reinterpret_cast<const void*>(&delivery_kernel<T, CPL, R>), smem);
   if (err != cudaSuccess) return err;
   const int slice = CPL * 32 * (16 / static_cast<int>(sizeof(T)));  // columns
   const dim3 grid(n_tiles, (tile + slice - 1) / slice);

@@ -65,6 +65,8 @@
 #include <algorithm>
 #include <cstdint>
 
+#include "kernel_attrs.cuh"
+
 namespace {
 
 constexpr int kWarp = 32;
@@ -376,9 +378,8 @@ int sanafe_prefix_launch(const void* x, void* out, int rows, int cols,
   const size_t smem = kBarrierBytes + static_cast<size_t>(kStages) * per_cta *
                                           (kRowStride + kStartsStride) *
                                           sizeof(double);
-  err = cudaFuncSetAttribute(prefix_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
+  err = sanafe::reserve_smem(reinterpret_cast<const void*>(&prefix_kernel),
+                             smem);
   if (err != cudaSuccess) return err;
   prefix_kernel<<<blocks, 2 * kWarp, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const double*>(x), static_cast<double*>(out), rows, cols,

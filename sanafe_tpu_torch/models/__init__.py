@@ -56,7 +56,7 @@ class ModelSpec:
     # parameter/state arrays ---
     # signature: update(params, state, valid, current, t)
     #   -> (new_state: dict, fired: bool[N], updated: bool[N],
-    #       potential: float[N])
+    #       potential: float[N]); t is a 0-d int64 tensor on the device
     soma_update: Optional[Callable] = None
     # per-neuron parameters: name -> default (settable via neuron attrs)
     param_defaults: dict[str, float] = field(default_factory=dict)
@@ -72,9 +72,10 @@ class ModelSpec:
     # neuron per timestep. Only meaningful for models that also ignore the
     # synaptic input. Emulated per-neuron via rank/stride (see ops/step.py).
     shared_unit_state: bool = False
-    # True when the update also takes ``lanes``, the range of the chip's
-    # neuron indices its tensors hold (see register_soma_model)
-    takes_lanes: bool = False
+    # feed(params, t0, length, lanes) -> [length, len(lanes)] array or
+    # None: the update's host inputs for a chunk, built once a chunk; the
+    # update then takes ``feed=``, its step's row (see register_soma_model)
+    feed: Optional[Callable] = None
 
 
 # Framework attributes recognized by every unit (src/pipeline.hpp:182-205)
@@ -177,28 +178,36 @@ def register_soma_model(
     attributes: dict[str, str] | None = None,
     dendrite_compartments: int = 0,
     shared_unit_state: bool = False,
-    lanes: bool = False,
+    feed: Optional[Callable] = None,
 ) -> ModelSpec:
     """Register a Python soma model (the dlopen-plugin replacement).
 
     ``update(params, state, valid, current, t)`` receives dicts of [N]
     torch tensors of the chip's device and dtype (``valid`` bool,
-    ``current`` the dtype, ``t`` the 1-based timestep as a Python int)
-    and must return ``(new_state, fired, updated, potential)``. A model
-    with ``dendrite_compartments > 0`` also receives ``comp`` [N, K], the
-    per-compartment input sums of the previous step. Under a
+    ``current`` the dtype, ``t`` the 1-based timestep as a 0-d int64
+    tensor on the device) and must return ``(new_state, fired, updated,
+    potential)``. On the card the step scan replays captured CUDA graphs
+    (``ops/scan.py``), so the update runs device ops only: it reads no
+    value back to the host and makes no host decision from its inputs.
+    A model with ``dendrite_compartments > 0`` also receives ``comp``
+    [N, K], the per-compartment input sums of the previous step. Under a
     ``ParameterSweep`` the tensors carry a leading sample axis ([B, N],
     ``comp`` [B, N, K]; a parameter may stay [N]), so an update written
     elementwise, indexing the last axes, serves both.
 
-    When ``sim(mesh=...)`` shards the chip, each rank's update sees only
-    the neurons that rank owns: the tensors are ``[N_rank]``, a slice of
-    the padded chip. A model registered with ``lanes=True`` also receives
-    the keyword ``lanes``, the ``range`` of the chip's neuron indices its
-    tensors hold (``range(0, N)`` on one device and in a sweep); a model
-    that draws random numbers per neuron keys each draw by that index, so
-    a sharded run draws what one device draws. Reuses the existing id if
-    the name was registered before.
+    Host work an update needs each step goes in ``feed(params, t0, length,
+    lanes)``: called on the host once a chunk of ``length`` steps from step
+    ``t0`` with the update's ``params`` and ``lanes``, the ``range`` of the
+    chip's neuron indices its tensors hold, it returns a ``[length,
+    len(lanes)]`` array (or None); the update then receives the keyword
+    ``feed``, its step's row on the chip's device and dtype (None where the
+    function returned None). When ``sim(mesh=...)`` shards the chip, each
+    rank's update sees only the neurons that rank owns (the tensors are
+    ``[N_rank]``, a slice of the padded chip, and ``lanes`` is that
+    slice's range), so a feed that draws random numbers per neuron keys
+    each draw by its index, and a sharded run draws what one device
+    draws: NeuroFEM draws its noise so. Reuses the existing id if the name
+    was registered before.
     """
     global _next_plugin_id
     existing = _REGISTRY.get(name)
@@ -221,7 +230,7 @@ def register_soma_model(
         state_init=dict(state or {}),
         dendrite_compartments=dendrite_compartments,
         shared_unit_state=shared_unit_state,
-        takes_lanes=lanes,
+        feed=feed,
     )
     register_model(spec)
     return spec

@@ -13,8 +13,10 @@ The reference adds ``sigma_v * N(0,1)`` membrane noise drawn from an
 sanafe_tpu draws it from a threefry key folded with the timestep; this port
 draws it on the host, each neuron's draw a function of
 (``SANAFE_TPU_NEUROFEM_SEED``, default 42; the timestep; the neuron's
-index) alone, and copies the draws to the chip's device. So runs are
-bit-reproducible, the same on the CPU and the card, resumable (sample t is
+index) alone: a chunk's draws at once, as the model's chunk feed
+(``neurofem_noise``), copied to the chip's device once a chunk; the update
+adds its step's row. So runs are bit-reproducible, the same on the CPU and
+the card and with the step captured in a CUDA graph, resumable (sample t is
 the same whether reached in one sim() call or several) and the same when
 ``sim(mesh=...)`` shards the neurons (each rank draws its own neurons').
 Neither stream is the other's: the distribution, not the sequence,
@@ -66,14 +68,16 @@ def _mix64(z: np.ndarray) -> np.ndarray:
     return z ^ (z >> np.uint64(31))
 
 
-def standard_normal(t: int, lanes: range) -> np.ndarray:
-    """The float64 ``N(0,1)`` draws of timestep ``t`` for the neurons
-    ``lanes``: neuron i's draw is Box-Muller of two uniforms hashed from
+def standard_normal(steps: range, lanes: range) -> np.ndarray:
+    """The float64 ``N(0,1)`` draws ``[len(steps), len(lanes)]`` of the
+    timesteps ``steps`` for the neurons ``lanes``: neuron i's draw at step
+    t is Box-Muller of two uniforms hashed from
     (``step_seed(SANAFE_TPU_NEUROFEM_SEED (default 42), t)``, i) alone."""
     seed = int(os.environ.get("SANAFE_TPU_NEUROFEM_SEED", "42"))
+    seeds = np.array([step_seed(seed, t) for t in steps], dtype=np.uint64)
     # 32 bits of step seed above 31 bits of neuron index, times 2
-    key = (np.arange(lanes.start, lanes.stop, dtype=np.uint64)
-           + np.uint64(step_seed(seed, int(t)) << 31)) << np.uint64(1)
+    key = (np.arange(lanes.start, lanes.stop, dtype=np.uint64)[None, :]
+           + (seeds[:, None] << np.uint64(31))) << np.uint64(1)
     golden = np.uint64(0x9E3779B97F4A7C15)
     bits1 = _mix64(key * golden) >> np.uint64(11)
     bits2 = _mix64((key | np.uint64(1)) * golden) >> np.uint64(11)
@@ -82,12 +86,22 @@ def standard_normal(t: int, lanes: range) -> np.ndarray:
     return np.sqrt(-2.0 * np.log(u1)) * np.cos(2.0 * math.pi * u2)
 
 
-def neurofem_update(params, state, valid, current, t, comp, lanes=None):
+def neurofem_noise(params, t0: int, length: int, lanes: range):
+    """The model's chunk feed: the ``[length, len(lanes)]`` draws of the
+    steps ``t0 .. t0 + length - 1`` (``standard_normal``), or None while
+    every ``sigma_v`` is zero (nothing is drawn and no tensor reaches the
+    device). Reads ``sigma_v`` back once a chunk."""
+    if not bool(torch.any(params["sigma_v"] != 0.0)):
+        return None
+    return standard_normal(range(t0, t0 + length), lanes)
+
+
+def neurofem_update(params, state, valid, current, t, comp, feed=None):
     """process_fem (plugins/neurofem.cpp:275-318) with compartment inputs
     comp[..., 0] -> u1 and comp[..., 1] -> u2. The tensors are ``[n]``,
-    or ``[B, n]`` for a sweep's B samples; a step's ``[n]`` noise draws are
-    shared by the samples (sanafe_tpu's ``vmap`` shares its key). ``lanes``
-    are the neuron indices the tensors hold (``range(n)`` when None)."""
+    or ``[B, n]`` for a sweep's B samples; ``feed``, the step's ``[n]``
+    noise draws (``neurofem_noise``; None: no noise), is shared by the
+    samples (sanafe_tpu's ``vmap`` shares its key)."""
     dt = params["dt"]
     lambda_d = params["lambda_d"]
     lambda_v = params["lambda_v"]
@@ -107,15 +121,9 @@ def neurofem_update(params, state, valid, current, t, comp, lanes=None):
     u_integrated = u_integrated + dt * u_error
 
     v = v - lambda_v * dt * v
-    # plugins/neurofem.cpp:296-303; the draw is skipped (and no tensor
-    # reaches the device) while every sigma_v is zero
-    sigma_v = params["sigma_v"]
-    if bool(torch.any(sigma_v != 0.0)):
-        if lanes is None:
-            lanes = range(v.shape[-1])
-        noise = torch.from_numpy(standard_normal(t, lanes)).to(
-            device=v.device, dtype=v.dtype)
-        noise_term = sigma_v * noise
+    # plugins/neurofem.cpp:296-303
+    if feed is not None:
+        noise_term = params["sigma_v"] * feed
     else:
         noise_term = torch.zeros_like(v)
     v = (
@@ -156,5 +164,5 @@ register_soma_model(
     state={"potential": 0.0, "u1": 0.0, "u2": 0.0, "u_integrated": 0.0},
     attributes=NEUROFEM_ATTRIBUTES,
     dendrite_compartments=2,
-    lanes=True,
+    feed=neurofem_noise,
 )

@@ -30,7 +30,7 @@ it; the other rows would add +0.0 and are not read. Its plain version is
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -337,44 +337,51 @@ def _batch_library():
     return lib
 
 
-def delivery_batch_kernel(fired_tiles, weights, arrivals, src_tiles,
-                          dest_offsets, max_blocks_per_dest: int,
-                          live_rows: LiveRows):
-    """B deliveries at once: the CUDA kernels (the sample masks, then the
-    sums) for CUDA tensors, ``delivery_batch_plain`` for CPU tensors.
-    Arguments and results as ``delivery_batch_plain``'s, and ``live_rows``
-    (``build_live_rows`` of these weights and arrivals, or a list with more
-    rows, such as ``every_row_live``).
+class BatchDelivery(NamedTuple):
+    """``delivery_batch_kernel``'s operands but the fired planes, checked
+    once for ``batch`` samples (``plan_delivery_batch``): a launch
+    (``delivery_batch_launch``) then checks only its planes. ``launch``
+    holds the library's arguments after the planes' pointer (None for CPU
+    tensors, which take the plain version)."""
 
-    The kernel reads only the listed rows that some sample fired, each once
-    a step for all samples sharing ``weights`` and ``arrivals``, and adds it
-    into every sample that fired it. A leading ``[B]`` axis on either (a
-    sweep that overrides ``block_weights`` or ``block_counts``) makes it
-    read each sample's own, that sample's fired rows only; the list is then
-    the union over the samples. Each sample adds its fired rows in
-    ascending order within a block and its blocks in ascending order, from
-    +0.0; an unlisted row holds only +-0.0 and changes no bit of a sum. So
-    two launches on the same inputs give the same bits, and the result
-    equals ``delivery_kernel`` and ``delivery_batch_plain`` bit for bit
-    wherever the partial sums are exact (integer weights), and to rounding
-    otherwise. Float32 and float64; launches on the current stream and does
-    not synchronise.
-    ``delivery_batch_kernel.launches`` counts its launches."""
-    dev = fired_tiles.device
+    weights: torch.Tensor
+    arrivals: torch.Tensor
+    src_tiles: torch.Tensor
+    dest_offsets: torch.Tensor
+    max_blocks_per_dest: int
+    live_rows: LiveRows
+    shape: tuple  # the planes' (batch, n_tiles, tile)
+    launch: Optional[tuple]
+    arrived_bytes: int  # the arrived planes' bytes, rounded up to 16
+    scratch_bytes: int  # the arrived planes and the sample masks
+
+
+def plan_delivery_batch(batch: int, weights, arrivals, src_tiles,
+                        dest_offsets, max_blocks_per_dest: int,
+                        live_rows: LiveRows) -> BatchDelivery:
+    """Check ``delivery_batch_kernel``'s shared operands for ``batch``
+    samples (arguments as its own) and ask the library for the launch's
+    shared memory, once: ``ParameterSweep`` builds its plan with the
+    program, so a step's launch pays neither."""
+    n_tiles = dest_offsets.shape[0] - 1
+    n_blocks, tile = weights.shape[-3], weights.shape[-2]
+    shape = (batch, n_tiles, tile)
+    plan = dict(weights=weights, arrivals=arrivals, src_tiles=src_tiles,
+                dest_offsets=dest_offsets,
+                max_blocks_per_dest=int(max_blocks_per_dest),
+                live_rows=live_rows, shape=shape, launch=None,
+                arrived_bytes=0, scratch_bytes=0)
+    dev = weights.device
     if dev.type == "cpu":
-        return delivery_batch_plain(fired_tiles, weights, arrivals,
-                                    src_tiles, dest_offsets,
-                                    max_blocks_per_dest, live_rows)
+        return BatchDelivery(**plan)
     if dev.type != "cuda":
         raise ValueError(f"delivery_batch_kernel: unsupported device {dev}")
-    dtype = fired_tiles.dtype
+    dtype = weights.dtype
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"delivery_batch_kernel: unsupported dtype {dtype}")
-    if fired_tiles.dim() != 3 or fired_tiles.shape[0] == 0:
+    if batch <= 0:
         raise ValueError("delivery_batch_kernel: fired_tiles must be "
                          "[B, n_tiles, tile] with B > 0")
-    batch, n_tiles, tile = fired_tiles.shape
-    n_blocks = weights.shape[-3]
     if not 8 <= tile <= MAX_TILE or tile & (tile - 1):
         raise ValueError(f"delivery_batch_kernel: tile {tile} is not a "
                          f"power of two in [8, {MAX_TILE}]")
@@ -398,7 +405,6 @@ def delivery_batch_kernel(fired_tiles, weights, arrivals, src_tiles,
     if arrivals.dim() == 4:
         a_shape = (batch,) + a_shape
     expect = (
-        ("fired_tiles", fired_tiles, (batch, n_tiles, tile), dtype),
         ("weights", weights, w_shape, dtype),
         ("arrivals", arrivals, a_shape, torch.int32),
         ("src_tiles", src_tiles, (n_blocks,), torch.int32),
@@ -408,48 +414,121 @@ def delivery_batch_kernel(fired_tiles, weights, arrivals, src_tiles,
          torch.int32),
     )
     pointers = []
-    for name, x, shape, dt in expect:
+    for name, x, want, dt in expect:
         ptr = x.data_ptr()
-        if (x.device != dev or x.shape != shape or x.dtype != dt
+        if (x.device != dev or x.shape != want or x.dtype != dt
                 or not x.is_contiguous() or ptr % 16):
             raise ValueError(
                 f"delivery_batch_kernel: {name} must be a contiguous, "
-                f"16-byte aligned {dt} tensor of shape {shape} on {dev}; got "
+                f"16-byte aligned {dt} tensor of shape {want} on {dev}; got "
                 f"{x.dtype} {tuple(x.shape)} on {x.device}")
         pointers.append(ptr)
     w_stride = n_blocks * tile * tile if weights.dim() == 4 else 0
     a_stride = n_blocks * tile * words if arrivals.dim() == 4 else 0
-    lib = _batch_library()
     is_double = int(dtype == torch.float64)
-    blk_cap = int(max_blocks_per_dest)
+    blk_cap = plan["max_blocks_per_dest"]
     per_sample = int(bool(w_stride or a_stride))
-    if lib.sanafe_delivery_batch_smem(batch, n_tiles, tile, blk_cap,
-                                      is_double, per_sample) < 0:
+    if _batch_library().sanafe_delivery_batch_smem(
+            batch, n_tiles, tile, blk_cap, is_double, per_sample) < 0:
         raise ValueError(
             f"delivery_batch_kernel: {n_tiles} tiles of {tile} with up to "
             f"{blk_cap} blocks a tile need more than a CTA's 227 KB of "
             "shared memory")
-    out_cur = torch.empty((batch, n_tiles, tile), dtype=dtype, device=dev)
-    # one allocation, 16-byte aligned parts: the arrived planes, then the
-    # kernel's scratch, each neuron's sample mask (ceil(B/32) int32 words
-    # a neuron, word-major)
+    # one scratch allocation a launch, 16-byte aligned parts: the arrived
+    # planes, then the kernel's scratch, each neuron's sample mask
+    # (ceil(B/32) int32 words a neuron, word-major)
     n = n_tiles * tile
     arrived_bytes = -(-batch * n // 16) * 16
-    scratch = torch.empty(arrived_bytes + 4 * n * -(-batch // 32),
-                          dtype=torch.uint8, device=dev)
+    plan.update(
+        launch=(*pointers, w_stride, a_stride, batch, n_tiles, tile, blk_cap,
+                is_double, dev.index or 0),
+        arrived_bytes=arrived_bytes,
+        scratch_bytes=arrived_bytes + 4 * n * -(-batch // 32))
+    return BatchDelivery(**plan)
+
+
+def delivery_batch_launch(fired_tiles, plan: BatchDelivery):
+    """``delivery_batch_kernel`` on ``plan``'s operands: the CUDA kernels
+    for CUDA planes, ``delivery_batch_plain`` for CPU ones. Checks only the
+    planes ``fired_tiles`` ([B, n_tiles, tile], the plan's shape, in the
+    weights' dtype), allocates the outputs and launches on the current
+    stream; counts on ``delivery_batch_kernel.launches``."""
+    dev = fired_tiles.device
+    if dev.type == "cpu":
+        return delivery_batch_plain(
+            fired_tiles, plan.weights, plan.arrivals, plan.src_tiles,
+            plan.dest_offsets, plan.max_blocks_per_dest, plan.live_rows)
+    dtype = plan.weights.dtype
+    if (plan.launch is None or dev != plan.weights.device
+            or fired_tiles.dtype != dtype
+            or tuple(fired_tiles.shape) != plan.shape
+            or not fired_tiles.is_contiguous()
+            or fired_tiles.data_ptr() % 16):
+        raise ValueError(
+            f"delivery_batch_kernel: fired_tiles must be a contiguous, "
+            f"16-byte aligned {dtype} tensor of shape {plan.shape} on "
+            f"{plan.weights.device}; got {fired_tiles.dtype} "
+            f"{tuple(fired_tiles.shape)} on {dev}")
+    out_cur = torch.empty(plan.shape, dtype=dtype, device=dev)
+    scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8, device=dev)
     base = scratch.data_ptr()
+    lib = _batch_library()
+    *pointers, w_stride, a_stride, batch, n_tiles, tile, blk_cap, \
+        is_double, index = plan.launch
     err = lib.sanafe_delivery_batch_launch(
-        *pointers, base + arrived_bytes, out_cur.data_ptr(), base, w_stride,
-        a_stride, batch, n_tiles, tile, blk_cap, is_double, dev.index or 0,
-        torch.cuda.current_stream(dev).cuda_stream,
+        fired_tiles.data_ptr(), *pointers, base + plan.arrived_bytes,
+        out_cur.data_ptr(), base, w_stride, a_stride, batch, n_tiles, tile,
+        blk_cap, is_double, index, torch.cuda.current_stream(dev).cuda_stream,
     )
     if err:
         raise RuntimeError(
             "delivery batch kernel launch failed: "
             + lib.sanafe_delivery_batch_error_string(err).decode())
     delivery_batch_kernel.launches += 1
-    arrived = scratch[: batch * n].view(torch.bool).view(batch, n_tiles, tile)
+    n = n_tiles * tile
+    arrived = scratch[: batch * n].view(torch.bool).view(plan.shape)
     return out_cur, arrived
+
+
+def delivery_batch_kernel(fired_tiles, weights, arrivals, src_tiles,
+                          dest_offsets, max_blocks_per_dest: int,
+                          live_rows: LiveRows):
+    """B deliveries at once: the CUDA kernels (the sample masks, then the
+    sums) for CUDA tensors, ``delivery_batch_plain`` for CPU tensors.
+    Arguments and results as ``delivery_batch_plain``'s, and ``live_rows``
+    (``build_live_rows`` of these weights and arrivals, or a list with more
+    rows, such as ``every_row_live``). It checks every operand on each
+    call; a caller that launches on the same operands step after step
+    builds ``plan_delivery_batch`` once and calls ``delivery_batch_launch``.
+
+    The kernel reads only the listed rows that some sample fired, each once
+    a step for all samples sharing ``weights`` and ``arrivals``, and adds it
+    into every sample that fired it. A leading ``[B]`` axis on either (a
+    sweep that overrides ``block_weights`` or ``block_counts``) makes it
+    read each sample's own, that sample's fired rows only; the list is then
+    the union over the samples. Each sample adds its fired rows in
+    ascending order within a block and its blocks in ascending order, from
+    +0.0; an unlisted row holds only +-0.0 and changes no bit of a sum. So
+    two launches on the same inputs give the same bits, and the result
+    equals ``delivery_kernel`` and ``delivery_batch_plain`` bit for bit
+    wherever the partial sums are exact (integer weights), and to rounding
+    otherwise. Float32 and float64; launches on the current stream and does
+    not synchronise.
+    ``delivery_batch_kernel.launches`` counts its launches."""
+    dev = fired_tiles.device
+    if dev.type == "cpu":
+        return delivery_batch_plain(fired_tiles, weights, arrivals,
+                                    src_tiles, dest_offsets,
+                                    max_blocks_per_dest, live_rows)
+    if dev.type != "cuda":
+        raise ValueError(f"delivery_batch_kernel: unsupported device {dev}")
+    if fired_tiles.dim() != 3 or fired_tiles.shape[0] == 0:
+        raise ValueError("delivery_batch_kernel: fired_tiles must be "
+                         "[B, n_tiles, tile] with B > 0")
+    plan = plan_delivery_batch(fired_tiles.shape[0], weights, arrivals,
+                               src_tiles, dest_offsets, max_blocks_per_dest,
+                               live_rows)
+    return delivery_batch_launch(fired_tiles, plan)
 
 
 delivery_batch_kernel.launches = 0

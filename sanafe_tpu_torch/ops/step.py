@@ -28,9 +28,10 @@ holds ``[B, ...]`` tensors and any per-neuron array may be ``[B, n]``;
 elementwise ops broadcast, gathers index the last axis, reductions run
 over ``dim=-1`` and segment sums keep each sample's bins apart. Block
 delivery of a batch goes through ``delivery_batch_kernel``, which reads
-each fired live weight row once for every sample (the live rows are
-``a["block_live_rows"]``, which ``ParameterSweep`` builds). Without the
-sample axis the step runs the same ops as before.
+each fired live weight row once for every sample (its operands, the live
+rows among them, checked once: ``a["block_batch_plan"]``, which
+``ParameterSweep`` builds). Without the sample axis the step runs the same
+ops as before.
 """
 
 from __future__ import annotations
@@ -55,7 +56,7 @@ from ..models import (
 from .conv import ConvDelivery, build_conv_delivery, conv_arrays, conv_deliver
 from .delivery import (
     block_rows_sum,
-    delivery_batch_kernel,
+    delivery_batch_launch,
     delivery_kernel,
     delivery_plain,
     pack_arrival_plane,
@@ -318,10 +319,11 @@ def initial_state(c: CompiledChip, dtype: torch.dtype, device,
               for var in spec.state_init}
         no_input = torch.zeros(n, dtype=torch.bool, device=device)
         zero_cur = torch.zeros(n, dtype=dtype, device=device)
+        t = torch.ones((), dtype=torch.int64, device=device)
+        extra = {"feed": None} if spec.feed is not None else {}
         for j in range(max_rank):
             advanced, _, _, _ = spec.soma_update(
-                params, st, no_input, zero_cur, 1,
-                **({"lanes": range(n)} if spec.takes_lanes else {}))
+                params, st, no_input, zero_cur, t, **extra)
             st = {var: torch.where(rank > j, advanced[var], value)
                   for var, value in st.items()}
         for var, value in st.items():
@@ -362,6 +364,9 @@ class DeviceProgram:
     n_stats_cols: int = 0
     # this rank's part of a program sharded over a mesh (parallel.Shard)
     shard: object = None
+    # the step scan replays its chunks as CUDA graphs (ops/scan.py:
+    # ScanGraphs); on the CPU the same blocks run eagerly in graph form
+    graph: bool = False
 
     def init_state(self) -> dict[str, torch.Tensor]:
         """The state before the first step; a sharded program's holds its
@@ -391,6 +396,7 @@ def make_device_program(
     use_kernel: Optional[bool] = None,
     fuse: bool = True,
     mesh=None,
+    graph: Optional[bool] = None,
 ) -> DeviceProgram:
     """sanafe_tpu's ``make_device_program`` on ``device``.
 
@@ -406,6 +412,13 @@ def make_device_program(
     arrays per sample (``ParameterSweep``) needs the step to read them from
     ``arrays``.
 
+    ``graph`` (``None``: on CUDA unless ``SANAFE_TPU_GRAPH=0``) makes the
+    step scan replay each chunk as CUDA graphs (``ops/scan.py:
+    ScanGraphs``); ``graph=True`` on the CPU runs the same blocks eagerly.
+    A sharded program stays eager, and asking one for graphs raises: gloo's
+    ``all_reduce`` of the masks stages through host memory, which a graph
+    cannot capture.
+
     ``use_kernel`` takes the place of ``use_pallas``: ``None`` means "on
     CUDA" (float32 and float64). With the kernel on, the program is built as
     sanafe_tpu builds it with ``pallas_delivery`` set: no dense delivery
@@ -417,6 +430,12 @@ def make_device_program(
     device = torch.device(device)
     if use_kernel is None:
         use_kernel = device.type == "cuda"
+    if graph is None:
+        graph = (device.type == "cuda" and mesh is None
+                 and os.environ.get("SANAFE_TPU_GRAPH", "1") != "0")
+    elif graph and mesh is not None:
+        raise ValueError("a sharded program cannot replay CUDA graphs: its "
+                         "step's all_reduce stages through host memory")
 
     def farr(x):
         return torch.as_tensor(np.asarray(x, dtype=np.float64)).to(
@@ -647,6 +666,7 @@ def make_device_program(
         fused_rollup=fused_rollup,
         dense_delivery=dense_delivery,
         n_stats_cols=n_stats_cols,
+        graph=graph,
     )
     if mesh is not None:
         from ..parallel import shard_program
@@ -681,10 +701,11 @@ def lif_noise(a, t, dtype: torch.dtype) -> torch.Tensor:
     ] * has_noise.to(dtype)
 
 
-def lif_step(a, v, u, refractory, valid, current, t: int, noise=None):
-    """One LIF update of every lane of ``a``'s parameter vectors, ``noise``
-    added to the quantised potential where given. Returns (v, u,
-    refractory, updated, fired)."""
+def lif_step(a, v, u, refractory, valid, current, t, noise=None):
+    """One LIF update of every lane of ``a``'s parameter vectors at step
+    ``t`` (an int, or an int64 tensor on ``v``'s device), ``noise`` added
+    to the quantised potential where given. Returns (v, u, refractory,
+    updated, fired)."""
     zero = torch.zeros((), dtype=v.dtype, device=v.device)
 
     updated = (
@@ -693,10 +714,11 @@ def lif_step(a, v, u, refractory, valid, current, t: int, noise=None):
         | (a["bias"].abs() > 0.0)
         | a["force_update"]
     )
-    # No leak on the very first timestep (src/models.cpp:527-532)
-    if t > 1:
-        u = u * a["input_decay"]
-        v = v * a["leak_decay"]
+    # No leak on the very first timestep (src/models.cpp:527-532): a select
+    # on the step tensor, not a host branch, so a captured step replays it
+    leak = torch.as_tensor(t, device=v.device) > 1
+    u = torch.where(leak, u * a["input_decay"], u)
+    v = torch.where(leak, v * a["leak_decay"], v)
     # 64ths fixed-point quantization, truncating toward zero
     # (src/models.cpp:447-455)
     v = torch.trunc(v * 64.0) / 64.0
@@ -781,32 +803,36 @@ def _truenorth_update(prog: DeviceProgram, a, state, valid, current,
     return v_after, updated, fired
 
 
-def _input_update(prog: DeviceProgram, a, t):
+def _input_update(prog: DeviceProgram, a, t: torch.Tensor):
     """InputModel::update vectorized (src/models.cpp:863-903): spike-train
     inputs advance by the number of neurons sharing their unit each step;
     rate inputs fire every ``interval`` steps. The train index is int64.
-    ``t`` is an int or an int64 column ``[T, 1]``, which gives the
-    ``[T, n]`` spikes of a chunk."""
+    ``t`` is the step as an int64 tensor on the program's device, 0-d or a
+    column ``[T, 1]``, which gives the ``[T, n]`` spikes of a chunk."""
     idx = (t - 1) * a["input_train_stride"] + a["input_train_rank"]
     in_range = idx < a["input_train_len"]
     gather_idx = torch.clamp(a["input_train_start"] + idx, min=0)
     gather_idx = torch.clamp(gather_idx, max=a["input_trains"].shape[0] - 1)
     spike = in_range & a["input_trains"][gather_idx]
     interval = a["input_rate_interval"]
-    step = t if isinstance(t, torch.Tensor) else torch.full_like(interval, t)
     rate_spike = (interval > 0) & (
-        torch.remainder(step, torch.clamp(interval, min=1)) == 0
+        torch.remainder(t, torch.clamp(interval, min=1)) == 0
     )
     return spike | rate_spike
 
 
 # --- the timestep ------------------------------------------------------------
 
-def _timestep(prog: DeviceProgram, a, state, t: int, feeds=None,
+def _timestep(prog: DeviceProgram, a, state, t, feeds=None,
               defer_rollup: bool = False):
-    """One hardware timestep (neuron phase, message phase, roll-up).
-    ``feeds`` holds this step's host inputs as device tensors: ``tn_noise``
-    (TrueNorth LFSR draws) and ``poisson`` (Poisson input spikes).
+    """One hardware timestep (neuron phase, message phase, roll-up) at the
+    1-based step ``t``, an int64 0-d tensor on the program's device (an int
+    is taken too). No op of the step reads a value back to the host, so a
+    CUDA graph captures it whole (``ops/scan.py:ScanGraphs``). ``feeds``
+    holds this step's host inputs as device tensors: ``tn_noise`` (TrueNorth
+    LFSR draws), ``poisson`` (Poisson input spikes) and
+    ``plugin_<model>``, the row of a plugin model's chunk feed
+    (``models.register_soma_model(feed=)``).
 
     ``defer_rollup=True`` (fused-roll-up programs only) emits the fired and
     updated planes instead of the stats, for one batched roll-up over the
@@ -827,6 +853,8 @@ def _timestep(prog: DeviceProgram, a, state, t: int, feeds=None,
     dtype = prog.dtype
     n = c.n_neurons
     dev = prog.device
+    if not isinstance(t, torch.Tensor):
+        t = torch.tensor(t, dtype=torch.int64, device=dev)
     zero = torch.zeros((), dtype=dtype, device=dev)
     shard = prog.shard
     full_a = a
@@ -873,9 +901,8 @@ def _timestep(prog: DeviceProgram, a, state, t: int, feeds=None,
             poisson[a["poisson_slots"]] = feeds["poisson"]
             fired_input = fired_input | poisson
         fired = fired | (is_input & fired_input)
-    lanes = range(shard.lo, shard.hi) if shard is not None else range(n)
     plugin_state, plugin_out = _plugin_update(c, a, state, valid, current,
-                                              t, lanes)
+                                              t, feeds)
     for spec, (p_fired, p_updated, p_potential) in plugin_out:
         is_this = a["soma_model"] == spec.soma_model_id
         fired = fired | (is_this & p_fired)
@@ -984,12 +1011,13 @@ def _timestep(prog: DeviceProgram, a, state, t: int, feeds=None,
     return new_state, outputs
 
 
-def _plugin_update(c: CompiledChip, a, state, valid, current, t: int,
-                   lanes: range):
-    """The plugin soma models' step (sanafe_tpu/ops/step.py:1250-1294).
-    Each spec's update runs over every lane; lanes of other models keep
-    their plugin state. ``lanes`` are the chip's neuron indices the
-    tensors hold, passed to a spec registered with ``lanes=True``. A
+def _plugin_update(c: CompiledChip, a, state, valid, current, t,
+                   feeds: dict):
+    """The plugin soma models' step (sanafe_tpu/ops/step.py:1250-1294) at
+    the step tensor ``t``. Each spec's update runs over every lane; lanes
+    of other models keep their plugin state. A spec with a chunk feed
+    gets this step's row of it (``feeds["plugin_<name>"]``, None where
+    the feed gave none). A
     shared-unit spec (``shared_unit_state``) is applied ``stride - 1``
     more times, each lane advancing only while
     ``stride - 1 > j``: the unit is updated once per member per step, and
@@ -1004,7 +1032,8 @@ def _plugin_update(c: CompiledChip, a, state, valid, current, t: int,
                   for param in spec.param_defaults}
         st = {var: state[f"plugin_{spec.name}_{var}"]
               for var in spec.state_init}
-        extra = {"lanes": lanes} if spec.takes_lanes else {}
+        extra = ({"feed": feeds.get(f"plugin_{spec.name}")}
+                 if spec.feed is not None else {})
         if spec.dendrite_compartments > 0:
             comp = state["comp_buffer"][..., : spec.dendrite_compartments]
             st, p_fired, p_updated, p_potential = spec.soma_update(
@@ -1181,11 +1210,9 @@ def _block_deliver(prog: DeviceProgram, a, fired_f, n: int):
             fired_pad = torch.zeros((rows, blk.n_pad), dtype=dtype,
                                     device=prog.device)
             fired_pad[:, :n] = fired_f
-            acc, arrived = delivery_batch_kernel(
+            acc, arrived = delivery_batch_launch(
                 fired_pad.view(rows, blk.n_tiles, blk.tile),
-                a["block_weights"], a["block_arrivals"], blk.src_tiles,
-                blk.dest_offsets, blk.max_blocks_per_dest,
-                a["block_live_rows"])
+                a["block_batch_plan"])
             return (acc.reshape(rows, -1)[:, :n],
                     arrived.reshape(rows, -1)[:, :n])
         return _block_deliver_rows(prog, a, fired_f, n)

@@ -10,8 +10,8 @@ the exchange; here every rank of a one-dimensional
   (``neuron_range``): their state, soma and dendrite parameters, the edges
   into them (the scatter path's per-edge dendrite state), and their columns
   of the host feeds (TrueNorth LFSR draws, Poisson inputs); a plugin
-  soma's update sees those neurons only, and is told their indices when
-  it asks (``register_soma_model(..., lanes=True)``);
+  soma's update sees those neurons only, and its chunk feed is told their
+  indices (``register_soma_model(..., feed=)``);
 - after the neuron phase every rank writes its fired and updated bits into
   zeroed full-width buffers and one ``all_reduce`` adds them, so every rank
   holds the whole masks: the sources of delivery, ``masks_packed`` and the

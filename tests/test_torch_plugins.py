@@ -414,21 +414,28 @@ def test_neurofem_noise_distribution(monkeypatch):
     comp = torch.zeros((n, 2), dtype=torch.float64)
     valid = torch.zeros(n, dtype=torch.bool)
     state = {key: zeros.clone() for key in spec.state_init}
+    # the model's chunk feed: the draws of all the steps at once
+    draws = torch.from_numpy(spec.feed(params, 1, steps, range(n)))
     increments, v_prev = [], zeros
     for t in range(1, steps + 1):
-        state, _, _, v = spec.soma_update(params, state, valid, zeros, t,
-                                          comp)
+        state, _, _, v = spec.soma_update(params, state, valid, zeros,
+                                          torch.tensor(t), comp,
+                                          feed=draws[t - 1])
         increments.append((v - v_prev).numpy())
         v_prev = v
     samples = np.concatenate(increments)
     assert abs(samples.mean()) < 4 * sigma / np.sqrt(samples.size)
     assert samples.std() == pytest.approx(sigma, rel=0.05)
     fresh = {key: zeros.clone() for key in spec.state_init}
-    _, _, _, v1 = spec.soma_update(params, fresh, valid, zeros, 1, comp)
-    np.testing.assert_array_equal(v1.numpy(), increments[0])
+
+    def first_step():
+        feed = torch.from_numpy(spec.feed(params, 1, 1, range(n))[0])
+        return spec.soma_update(params, fresh, valid, zeros, torch.tensor(1),
+                                comp, feed=feed)[3]
+
+    np.testing.assert_array_equal(first_step().numpy(), increments[0])
     monkeypatch.setenv("SANAFE_TPU_NEUROFEM_SEED", "7")
-    _, _, _, v7 = spec.soma_update(params, fresh, valid, zeros, 1, comp)
-    assert not np.array_equal(v7.numpy(), increments[0])
+    assert not np.array_equal(first_step().numpy(), increments[0])
 
 
 def _noisy_neurofem(mod):
