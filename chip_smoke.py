@@ -79,12 +79,16 @@ own line:
 12. DVS-gesture on the card: the tutorial 5 net (docs/make_tutorials.py:
    375-440) built from the package's dvs_challenge.npz. The level kernel
    against level_plain on the same card tensors, on every level of the
-   DAG engine's 1000-step chunk (fired, updated and the final state equal
-   bit for bit), with its ms a chunk, level_plain's and the bound; then
-   1000 steps simple through SpikingChip(device="cuda"): the engine is
-   "dag", the level kernel ran and neurons_fired == 365277 (the tutorial's
-   pinned count), with the steps/s of seven warm runs (median, spread and
-   host walls) and a profiled busy share; 200 steps with the spike trace
+   DAG engine's 1000-step chunk (an eager run's), its start step given as
+   the DAG body's 0-d device tensor and as an int (fired, updated and the
+   final state equal bit for bit), with its ms a chunk beside the
+   earlier kernel's (PERF.md section 6),
+   level_plain's and the bound; then 1000 steps simple through
+   SpikingChip(device="cuda"): the engine is "dag", its chunks replay
+   CUDA graphs, the level kernel ran and neurons_fired == 365277 (the
+   tutorial's pinned count), with the steps/s of seven warm runs (median,
+   spread and host walls) and a profiled busy share; 200 steps with the
+   spike trace
    through the DAG engine, through the scan with conv delivery
    (SANAFE_TPU_DAG=0), through the scan with the delivery kernel
    (SANAFE_CONV_DELIVERY=0; the kernel must have run, and its currents
@@ -199,13 +203,24 @@ own line:
    16-sample threshold sweep of full, 200 steps, captured and eager:
    every sample's counters, energies and sim_time bit for bit, one
    batched-kernel launch a step, ceil(200 / 16) replays, samples x
-   steps/s and the same per-mode numbers.
+   steps/s and the same per-mode numbers; DVS-gesture through the DAG
+   engine: its 1000-step chunk through DagGraphs, captured then replayed,
+   against the eager DAG body on the same arrays (every output, the state
+   and the launch counts bit for bit; the peak device memory of the eager
+   chunk, the capture and a replay), then through SpikingChip, 1000 steps
+   simple captured and eager (results and launch counts equal, one
+   replay a chunk; for each mode the median steps/s of seven warm runs,
+   host and device ms a chunk, the busy share, device ops a chunk and the
+   peak memory), and 200 steps detailed with device_sweep=True captured
+   and eager, after a run that captured (counters, energies, sim_time and
+   each step's sim_time equal).
 
-Phases 6, 13 and 15, and phase 12's route through the delivery kernel,
-run their scans eagerly (SANAFE_TPU_GRAPH=0 while their programs build):
-their per-call holds intercept the kernel wrappers, which a replayed
-graph does not call, and their numbers stay comparable with earlier runs.
-The other phases' scans replay graphs, the default.
+Phases 6, 13 and 15, phase 12's level-kernel holds and its route through
+the delivery kernel run their scans and DAG chunks eagerly
+(SANAFE_TPU_GRAPH=0 while their programs build): their per-call holds
+intercept the kernel wrappers, which a replayed graph does not call, and
+their numbers stay comparable with earlier runs. The other phases' scans
+and DAG chunks replay graphs, the default.
 
 It prints the kernels' JSON record and the card's name and power limit on
 the lines before the last, and as the last line {"ok": true, "device":
@@ -1006,8 +1021,11 @@ def dvs_phase(st, cuda, card, tmp: Path) -> dict:
 
     dag_chunk.level_kernel = capture
     try:
-        chip = chip_on(cuda)
-        chip.sim(DVS_STEPS, timing_model="simple", heartbeat=0)
+        # eager: a replayed graph calls no wrapper (phase 18 pairs the DAG
+        # engine's captured and eager runs)
+        with graph_knob("0"):
+            chip = chip_on(cuda)
+            chip.sim(DVS_STEPS, timing_model="simple", heartbeat=0)
     finally:
         dag_chunk.level_kernel = level_kernel
     del chip
@@ -1016,18 +1034,28 @@ def dvs_phase(st, cuda, card, tmp: Path) -> dict:
     n_bytes = n_ops = 0
     sizes = []
     for args in calls:
+        # the DAG body gives the kernel its start step as a 0-d device
+        # tensor, which the kernel reads on the card; the plain version
+        # takes it as an int, and so does the kernel a second time
+        check(isinstance(args[7], torch.Tensor) and args[7].is_cuda,
+              "level kernel: the DAG body's t0 is not a device tensor")
+        as_int = args[:7] + (int(args[7]),) + args[8:]
         got = level_kernel(*args)
-        want = level_plain(*args)
+        want = level_plain(*as_int)
+        got_int = level_kernel(*as_int)
         torch.cuda.synchronize()
         for field in want._fields:
-            x, y = getattr(want, field), getattr(got, field)
-            if x is None or y is None:
-                check(x is None and y is None, f"level {field}: presence")
+            x, y, z = (getattr(want, field), getattr(got, field),
+                       getattr(got_int, field))
+            if x is None or y is None or z is None:
+                check(x is None and y is None and z is None,
+                      f"level {field}: presence")
                 continue
             if x.dtype == torch.float32:
-                x, y = x.view(torch.int32), y.view(torch.int32)
-            check(torch.equal(x, y), f"level kernel: {field} differs from "
-                  f"level_plain (size {args[1].shape[0]})")
+                x, y, z = (w.view(torch.int32) for w in (x, y, z))
+            check(torch.equal(x, y) and torch.equal(x, z),
+                  f"level kernel: {field} differs from level_plain (size "
+                  f"{args[1].shape[0]})")
         kernel_ms += cuda_ms(lambda: level_kernel(*args), 20)
         plain_ms += cuda_ms(lambda: level_plain(*args), 1)
         floor_ms += cuda_ms(chain_floor().level_floor(args), 20)
@@ -1044,13 +1072,15 @@ def dvs_phase(st, cuda, card, tmp: Path) -> dict:
     level_bound, level_bound_by = bound(n_bytes, n_ops)
     print(f"level_kernel_vs_plain: DVS levels {sizes} of a {DVS_STEPS}-step "
           f"chunk: fired, updated, v, u and the final state equal bit for "
-          f"bit; level_kernel {kernel_ms} ms a chunk ({len(calls)} "
-          f"launches), level_plain on CUDA tensors {plain_ms} ms; bound "
+          f"bit, t0 a device tensor and an int; level_kernel {kernel_ms} ms "
+          f"a chunk ({len(calls)} launches; the kernel that took t0 by "
+          f"value: 0.421 ms, in turns on an NVIDIA H100 80GB HBM3, "
+          f"700.00 W), level_plain on CUDA tensors {plain_ms} ms; bound "
           f"{level_bound} ms ({level_bound_by}; {n_bytes} B, {n_ops} "
           f"operations); chain floor {floor_ms} ms (each lane's "
           f"{DVS_STEPS} LIF steps from registers, six levels) | {card}",
           flush=True)
-    del calls, got, want
+    del calls, got, got_int, want
     torch.cuda.empty_cache()
 
     # --- 12b. the main path: 1000 steps simple through SpikingChip ---
@@ -1088,6 +1118,8 @@ def dvs_phase(st, cuda, card, tmp: Path) -> dict:
         warm.append((DVS_STEPS / wall, {k: getattr(chip, v) - before[k]
                                         for k, v in wall_names.items()}))
     rates = sorted(rate for rate, _ in warm)
+    check(chip.graph_replays >= DVS_WARM_RUNS,
+          f"DVS: {chip.graph_replays} graph replays, the chunks not captured")
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1102,7 +1134,8 @@ def dvs_phase(st, cuda, card, tmp: Path) -> dict:
           f"edges={chip.compiled.n_edges} simple {DVS_STEPS} steps: "
           f"neurons_fired={first['neurons_fired']} spikes={first['spikes']} "
           f"energy={first['energy']['total']} sim_time={first['sim_time']}; "
-          f"engine {first['device_engine']}, launches {counts}; first run "
+          f"engine {first['device_engine']} (captured: {chip.graph_replays} "
+          f"graph replays in all), launches {counts}; first run "
           f"{t_first} s (program build included); {DVS_WARM_RUNS} warm "
           f"runs after it: median {rates[len(rates) // 2]} steps/s (min "
           f"{rates[0]}, max {rates[-1]}; each run's steps/s and host walls "
@@ -3057,7 +3090,214 @@ def graph_phase(st, cuda, card) -> None:
           f"planes): {wrapper_us} | {card}", flush=True)
     del chip
     torch.cuda.empty_cache()
+    dvs_graph_phase(st, cuda, card)
     print(f"phase 18: {time.perf_counter() - start} s", flush=True)
+
+
+def hold_dag_captured(prog, steps: int) -> str:
+    """The DVS program ``prog`` (built to replay graphs, every output
+    recorded) run one ``steps``-step chunk through its ``DagGraphs``, once
+    to capture it and once replaying it, and through its eager DAG body on
+    the same arrays: every output and the final state bit for bit and the
+    launch counts equal. Returns a summary for the phase's line, with the
+    peak device memory of each run above what was allocated before it."""
+    import torch
+
+    from sanafe_tpu_torch.ops.dag_chunk import (
+        DagGraphs,
+        make_dag_body,
+        plan_dag,
+        run_dag,
+    )
+
+    check(prog.graph, "dvs: the program does not replay graphs")
+    body = make_dag_body(prog, plan_dag(prog))
+    graphs = DagGraphs(prog, body)
+
+    def run(g):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        state, out = run_dag(body, prog, prog.init_state(), 1, steps,
+                             graphs=g)
+        torch.cuda.synchronize()
+        return (state, out, read_counts(),
+                torch.cuda.max_memory_allocated() - base)
+
+    reserved = torch.cuda.memory_reserved()
+    capture_peak = run(graphs)[3]  # the warm-up, then the capture
+    reserved = torch.cuda.memory_reserved() - reserved
+    c_state, c_out, c_counts, replay_peak = run(graphs)
+    e_state, e_out, e_counts, eager_peak = run(None)
+    check(sorted(c_out) == sorted(e_out), "dvs: output keys")
+    for key in e_out:
+        check(same_bits(c_out[key], e_out[key]),
+              f"dvs: captured {key} differs from the eager DAG body's")
+    for key in e_state:
+        check(same_bits(c_state[key], e_state[key]),
+              f"dvs: captured state {key} differs from the eager body's")
+    check(c_counts == e_counts and c_counts["level_kernel"] == 6,
+          f"dvs: launches {c_counts} captured, {e_counts} eager")
+    check(graphs.replays == 1 and set(graphs.chunks) == {steps},
+          f"dvs: {graphs.replays} replays of chunks {set(graphs.chunks)}")
+    fired = int(e_out["stats"][:, 4].sum())
+    return (f"dvs {steps}-step DAG chunk: {sorted(e_out)} and the state "
+            f"{sorted(e_state)} bit for bit ({fired} fired), launches "
+            f"{c_counts}, one replay; peak device memory above the program "
+            f"{eager_peak} B eager, {capture_peak} B the warm-up and "
+            f"capture ({reserved} B more reserved after it), {replay_peak} "
+            f"B a replayed chunk with its copies out")
+
+
+def dvs_graph_phase(st, cuda, card) -> None:
+    """Phase 18's DVS runs (module docstring): the DAG chunk held captured
+    against eager, then SpikingChip captured and eager, simple and
+    detailed with the device sweep."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from sanafe_tpu_torch.ops.dag_chunk import DagGraphs
+    from sanafe_tpu_torch.ops.step import make_device_program
+
+    def loaded():
+        arch, net = dvs_chip(st)
+        chip = st.SpikingChip(arch, device=cuda)
+        chip.load(net)
+        return chip
+
+    chip = loaded()
+    prog = make_device_program(chip.compiled, cuda, torch.float32, **FLAGS)
+    held = hold_dag_captured(prog, DVS_STEPS)
+    print(f"graph_equal: {held} OK | {card}", flush=True)
+    del chip, prog
+    torch.cuda.empty_cache()
+
+    # --- simple, 1000 steps: results, launches and timing in each mode ---
+    modes = {}
+    for mode, knob in (("captured", "1"), ("eager", "0")):
+        with graph_knob(knob):
+            chip = loaded()
+            # warm: the captured chip's first chunk captures its graph
+            warm = chip.sim(DVS_STEPS, timing_model="simple", heartbeat=0)
+            check(warm["neurons_fired"] == DVS_NEURONS_FIRED,
+                  f"dvs {mode}: fired {warm['neurons_fired']} in steps 1 to "
+                  f"{DVS_STEPS}, expected {DVS_NEURONS_FIRED}")
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            replays = chip.graph_replays
+            result = chip.sim(DVS_STEPS, timing_model="simple", heartbeat=0)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            replays = chip.graph_replays - replays
+            walls = []
+            for _ in range(DVS_WARM_RUNS):
+                begin = time.perf_counter()
+                chip.sim(DVS_STEPS, timing_model="simple", heartbeat=0)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - begin)
+            peak = torch.cuda.max_memory_allocated()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                begin = time.perf_counter()
+                chip.sim(DVS_STEPS, timing_model="simple", heartbeat=0)
+                torch.cuda.synchronize()
+                t_prof = time.perf_counter() - begin
+            device_us, top = device_busy(prof)
+            (engine,) = [e for e in chip._engines.values()
+                         if e.name == "dag"]
+            check(isinstance(engine.graphs, DagGraphs) == (mode == "captured"),
+                  f"dvs: the {mode} chip's graphs")
+            check(result["device_engine"] == "dag",
+                  f"dvs {mode}: engine {result['device_engine']}")
+            chunks = counts["level_kernel"] // 6
+            wall = sorted(walls)[len(walls) // 2]
+            modes[mode] = {
+                "steps_s": DVS_STEPS / wall,
+                "host_ms": wall / chunks * 1e3,
+                "device_ms": device_us / chunks * 1e-3,
+                "busy": (device_us * 1e-6 / t_prof if device_us
+                         else "not measured"),
+                "ops": device_ops(prof) / chunks,
+                "replays": replays, "chunks": chunks, "launches": counts,
+                "peak": peak, "base": base, "top": top[:3],
+                "rates": [DVS_STEPS / w for w in walls],
+                "result": {k: v for k, v in result.items()
+                           if not k.endswith("_trace")},
+            }
+            del chip, engine, prof
+            torch.cuda.empty_cache()
+    cap, eag = modes["captured"], modes["eager"]
+    check(cap["result"] == eag["result"],
+          f"dvs: captured {cap['result']} vs eager {eag['result']}")
+    check(cap["result"]["neurons_fired"] > 0, "dvs: nothing fired")
+    check(cap["launches"] == eag["launches"]
+          and cap["launches"]["level_kernel"] == 6 * cap["chunks"] > 0,
+          f"dvs: launches {cap['launches']} captured, {eag['launches']} "
+          "eager")
+    check(cap["replays"] == cap["chunks"] and eag["replays"] == 0,
+          f"dvs: {cap['replays']} replays of {cap['chunks']} chunks "
+          f"captured, {eag['replays']} eager")
+    parts = [
+        f"{mode} median {row['steps_s']} steps/s of {DVS_WARM_RUNS} warm "
+        f"runs ({row['rates']}); host {row['host_ms']} ms a chunk, device "
+        f"{row['device_ms']} ms a chunk by the profiler, busy share "
+        f"{row['busy']}, {row['ops']} device ops a chunk, {row['chunks']} "
+        f"chunks, {row['replays']} replays, launches {row['launches']}, "
+        f"peak memory {row['peak']} B ({row['base']} B before the run), "
+        f"top device ops {row['top']}"
+        for mode, row in modes.items()]
+    print(f"graph_timing: dvs simple {DVS_STEPS} steps after a warm run: "
+          f"{'; '.join(parts)}; captured / eager "
+          f"{cap['steps_s'] / eag['steps_s']}; results equal | {card}",
+          flush=True)
+
+    # --- detailed, 200 steps, the device sweep after each replay ---
+    swept = {}
+    for mode, knob in (("captured", "1"), ("eager", "0")):
+        with graph_knob(knob):
+            chip = loaded()
+            runs = []
+            for _ in range(2):  # the first captures, the second replays
+                reset_counts()
+                replays = chip.graph_replays
+                host_steps = chip.sweep_host_steps
+                result = chip.sim(DVS_TRACE_STEPS, timing_model="detailed",
+                                  heartbeat=0, perf_trace=True,
+                                  device_sweep=True)
+                torch.cuda.synchronize()
+                result["launches"] = read_counts()
+                result["replays"] = chip.graph_replays - replays
+                result["host_steps"] = chip.sweep_host_steps - host_steps
+                runs.append(result)
+            result = runs[1]
+            check(runs[0]["replays"] == 0,
+                  f"dvs detailed {mode}: the first run replayed")
+            swept[mode] = result
+            del chip
+            torch.cuda.empty_cache()
+    cap, eag = swept["captured"], swept["eager"]
+    check(cap["device_engine"] == eag["device_engine"] == "dag",
+          f"dvs detailed: engine {cap['device_engine']}")
+    for key in COUNTERS + ("sim_time", "energy", "launches", "host_steps"):
+        check(cap[key] == eag[key], f"dvs detailed: captured {key} "
+              f"{cap[key]}, eager {eag[key]}")
+    check(cap["launches"]["merge_kernel"] > 0,
+          "dvs detailed: no merge kernel launched")
+    check(np.array_equal(np.asarray(cap["perf_trace"]["sim_time"]),
+                         np.asarray(eag["perf_trace"]["sim_time"])),
+          "dvs detailed: captured per-step sim_time differs from eager")
+    check(cap["replays"] > 0 and eag["replays"] == 0,
+          f"dvs detailed: {cap['replays']} replays captured, "
+          f"{eag['replays']} eager")
+    print(f"graph_equal: dvs {DVS_TRACE_STEPS} steps detailed with the "
+          f"device sweep, after a run that captured: counters, energies, "
+          f"sim_time and each step's sim_time equal captured and eager "
+          f"(launches {cap['launches']}, {cap['replays']} replays, "
+          f"{cap['host_steps']} steps swept on the host) OK | {card}",
+          flush=True)
 
 
 def main() -> int:

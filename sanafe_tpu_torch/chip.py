@@ -12,15 +12,19 @@ of three device engines, chosen as sanafe_tpu's ``_make_chunk_runner`` and
 - the feed-forward engine (``ops/dag_chunk.py``) for a float32 conv net
   whose groups form a DAG (the DVS-gesture net): one batched convolution
   per hyperedge and one launch of the level kernel per level and chunk
-  (``ops/level_scan.py``), wherever the step scan would otherwise run;
+  (``ops/level_scan.py``), wherever the step scan would otherwise run; on
+  the card a chunk replays one CUDA graph of its length
+  (``ops/dag_chunk.py:DagGraphs``), captured at the first chunk of that
+  length;
 - the step scan (``ops/scan.py``) for every other chip, for the perf trace,
   for float64 on CUDA and for the device sweep, with block delivery through
   the CUDA delivery kernel on the card (``ops/delivery.py``) and conv
   delivery by strided convolutions (``ops/conv.py``). On the card a chunk
   of the scan replays CUDA graphs of ``ops/scan.py:GRAPH_UNROLL`` steps,
   captured at the engine's first chunk (``chip.graph_replays`` counts the
-  replays); ``SANAFE_TPU_GRAPH=0``, read when a program is built, keeps
-  it eager, and a sharded chip always is.
+  replays of both engines); ``SANAFE_TPU_GRAPH=0``, read when a program
+  is built, keeps the scan and the DAG engine eager, and a sharded chip
+  always is.
 
 Detailed timing is swept on the host by default (the native C++ scheduler,
 OpenMP across a chunk's steps). ``sim(device_sweep=True)`` (or
@@ -76,7 +80,7 @@ from .ops.chunk import (
     state_from_rows,
     state_rows,
 )
-from .ops.dag_chunk import make_dag_body, plan_dag, run_dag
+from .ops.dag_chunk import DagGraphs, make_dag_body, plan_dag, run_dag
 from .ops.merge_sweep import default_merge_cap, make_merge_sweep
 from .ops.scan import ScanGraphs, run_scan
 from .ops.step import DeviceProgram, initial_state, make_device_program
@@ -277,8 +281,9 @@ class _TraceState:
 class _Engine:
     """One device program with the engine that runs its chunks: the
     whole-chunk engine (its plan and device operands), the DAG engine (its
-    body) or, with both None, the step scan, with its CUDA graphs where the
-    program replays them (``graphs``, captured at the first chunk; dropped
+    body) or, with both None, the step scan. The DAG engine and the scan
+    have their CUDA graphs where the program replays them (``graphs``:
+    ``DagGraphs`` or ``ScanGraphs``, captured at the first chunk; dropped
     with the engine when ``_invalidate_programs`` clears the engines, so
     no graph outlives the arrays it reads)."""
 
@@ -286,7 +291,7 @@ class _Engine:
     plan: Any = None
     mats: Optional[dict] = None
     dag: Any = None
-    graphs: Optional[ScanGraphs] = None
+    graphs: Optional[DagGraphs | ScanGraphs] = None
     # "chunk_kernel", "chunk_plain", "dag" or "scan": result["device_engine"]
     name: str = "scan"
 
@@ -435,7 +440,8 @@ class SpikingChip:
         # host seconds and count of this rank's collectives in its steps
         self.exchange_wall = 0.0
         self.exchanges = 0
-        # CUDA graph replays of the step scan (ops/scan.py:ScanGraphs)
+        # CUDA graph replays of the step scan and the DAG engine
+        # (ops/scan.py:ScanGraphs, ops/dag_chunk.py:DagGraphs)
         self.graph_replays = 0
 
     # --- loading -------------------------------------------------------------
@@ -1043,8 +1049,9 @@ class SpikingChip:
         plan = None if use_scan else plan_chunk(prog)
         dag_plan = plan_dag(prog) if plan is None else None
         if dag_plan is not None:
-            engine = _Engine(prog, dag=make_dag_body(prog, dag_plan),
-                             name="dag")
+            body = make_dag_body(prog, dag_plan)
+            engine = _Engine(prog, dag=body, name="dag", graphs=(
+                DagGraphs(prog, body) if prog.graph else None))
         elif plan is None:
             engine = _Engine(prog, name="scan", graphs=(
                 ScanGraphs(prog, prog.arrays) if prog.graph else None))
@@ -1083,25 +1090,27 @@ class SpikingChip:
         engine's byte buffer as ``packed``."""
         prog, plan = engine.prog, engine.plan
         feeds = self._build_feeds(length)
+        graphs = engine.graphs
+        replays = graphs.replays if graphs is not None else 0
         if engine.dag is not None:
             # plan_dag takes no program that needs host feeds
             self._device_state, outputs = run_dag(
-                engine.dag, prog, self._device_state, t0, length, sweep
+                engine.dag, prog, self._device_state, t0, length, sweep,
+                graphs=graphs,
             )
-            return outputs
-        if plan is None:
+        elif plan is None:
             shard = prog.shard
             before = (shard.exchange_s, shard.exchanges) if shard else None
-            replays = engine.graphs.replays if engine.graphs else 0
             self._device_state, outputs = run_scan(
                 prog, self._device_state, t0, length, feeds, sweep,
-                graphs=engine.graphs,
+                graphs=graphs,
             )
-            if engine.graphs is not None:
-                self.graph_replays += engine.graphs.replays - replays
             if shard is not None:
                 self.exchange_wall += shard.exchange_s - before[0]
                 self.exchanges += shard.exchanges - before[1]
+        if plan is None:
+            if graphs is not None:
+                self.graph_replays += graphs.replays - replays
             return outputs
         spike_plane, add_plane = build_planes(prog, plan, length, t0, feeds)
         rows_out, packed = chunk_kernel(

@@ -10,7 +10,10 @@
 // lane's potential, input current and refractory count in registers across
 // the T steps.
 //
-// Per step t = t0 + j, lane i (lif_update.cuh, src/models.cpp:497-567):
+// Per step t = t0 + j, lane i (lif_update.cuh, src/models.cpp:497-567), t0
+// being read from device memory (a 0-d int64 tensor) once by each lane of
+// the recurrence's warp, so that a captured CUDA graph replays the launch
+// for any start step (ops/dag_chunk.py:DagGraphs):
 //   in:  cur[j, i] float, valid[j, i] byte, add[j, i] float (the LIF noise
 //        plane; absent on chips without noise)
 //   out: fired[j, i], updated[j, i] bytes, v_seq[j, i], u_seq[j, i] floats
@@ -104,8 +107,8 @@ struct Args {
   float* v_out;
   float* u_out;
   int* r_out;
+  const long long* t0;  // the 1-based step of row 0 [] (device memory)
   int size, n_steps;
-  long long t0;
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -203,8 +206,9 @@ __device__ __forceinline__ void prefetch(const Args& a, Ring<kAdd>& ring,
 template <bool kAdd, bool kRecV, bool kRecU, bool kFull, bool kLeak>
 __device__ __forceinline__ void run_batch(const Args& a, Ring<kAdd>& ring,
                                           const LifParams<int>& p,
-                                          const Lanes& w, bool live, int j0,
-                                          int n, float& v, float& u, int& r,
+                                          const Lanes& w, bool live,
+                                          long long t0, int j0, int n,
+                                          float& v, float& u, int& r,
                                           uint32_t& fired, uint32_t& updated) {
   float cur[kBatch], add[kBatch];
   bool valid[kBatch];
@@ -229,7 +233,7 @@ __device__ __forceinline__ void run_batch(const Args& a, Ring<kAdd>& ring,
   for (int k = 0; k < kBatch; ++k) {
     if (!kFull && k >= n) break;
     const int j = j0 + k;
-    const long long t = kLeak ? 2 : a.t0 + j;
+    const long long t = kLeak ? 2 : t0 + j;
     // lif_step's `updated`, with bitwise ors: the same flag, and no branch
     // to split the batch's block
     const bool upd = (fabsf(v) > 0.f) | valid[k] | always_updated;
@@ -330,27 +334,29 @@ __global__ void __launch_bounds__(2 * kWarp) level_kernel(const Args a) {
   float v = a.v0[q];
   float u = a.u0[q];
   int r = a.r0[q];
+  const long long t0 = *a.t0;
   for (int b = 0; b < n_batches; ++b) {
     const int slot = b % kBatches;
     mbar_wait(&ring.full[slot], (b / kBatches) & 1);
     const int j0 = b * kBatch;
     const int n = min(kBatch, a.n_steps - j0);
-    const bool leak = a.t0 + j0 > 1;
+    const bool leak = t0 + j0 > 1;
     uint32_t fired, updated;
     if (n == kBatch) {
       if (leak) {
-        run_batch<kAdd, kRecV, kRecU, true, true>(a, ring, p, w, live, j0, n,
-                                                  v, u, r, fired, updated);
+        run_batch<kAdd, kRecV, kRecU, true, true>(a, ring, p, w, live, t0, j0,
+                                                  n, v, u, r, fired, updated);
       } else {
-        run_batch<kAdd, kRecV, kRecU, true, false>(a, ring, p, w, live, j0,
-                                                   n, v, u, r, fired, updated);
+        run_batch<kAdd, kRecV, kRecU, true, false>(a, ring, p, w, live, t0,
+                                                   j0, n, v, u, r, fired,
+                                                   updated);
       }
     } else if (leak) {
-      run_batch<kAdd, kRecV, kRecU, false, true>(a, ring, p, w, live, j0, n,
-                                                 v, u, r, fired, updated);
+      run_batch<kAdd, kRecV, kRecU, false, true>(a, ring, p, w, live, t0, j0,
+                                                 n, v, u, r, fired, updated);
     } else {
-      run_batch<kAdd, kRecV, kRecU, false, false>(a, ring, p, w, live, j0, n,
-                                                  v, u, r, fired, updated);
+      run_batch<kAdd, kRecV, kRecU, false, false>(a, ring, p, w, live, t0, j0,
+                                                  n, v, u, r, fired, updated);
     }
     ring.fired[slot][w.lane] = static_cast<uint8_t>(fired);
     ring.updated[slot][w.lane] = static_cast<uint8_t>(updated);
@@ -387,10 +393,14 @@ cudaError_t launch_v(const Args& a, cudaStream_t stream) {
 extern "C" {
 
 // Launch the recurrence of one level on `stream` (no synchronisation).
-// `ptrs` holds the Args pointers in declaration order (24 of them, the
-// optional ones null where absent). Returns the CUDA error code (0 = ok).
+// `ptrs` holds the Args pointers in declaration order up to r_out (24 of
+// them, the optional ones null where absent); `t0` points to the 1-based
+// step of row 0 in device memory (an int64 the kernel reads, so a graph
+// that captured the launch replays it for the step the pointer then holds).
+// Returns the CUDA error code (0 = ok).
 int sanafe_level_launch(const void* const* ptrs, int size, int n_steps,
-                        long long t0, int device, void* stream) {
+                        const long long* t0, int device, void* stream) {
+  if (t0 == nullptr) return cudaErrorInvalidValue;
   if (size < 0 || n_steps < 0) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;

@@ -31,6 +31,16 @@ nets, plugins, Poisson and TrueNorth noise, per-edge state, float64 (no
 fused roll-up), dense delivery, a program that delivers through the block
 kernel, and everything under ``SANAFE_TPU_DAG=0``: those programs take the
 step scan.
+
+A chunk of sanafe_tpu's DAG engine is one compiled program a chunk length
+(``make_dag_body`` inside ``run_chunk_inner``'s jit,
+sanafe_tpu/ops/step.py:557-585). Here a program with ``graph`` set
+(``make_device_program``: on CUDA by default) replays its chunk as one CUDA
+graph a chunk length (``DagGraphs``): the body takes its start step as a
+device tensor and decides nothing on the host from tensor values, so one
+capture serves every chunk of that length, and a chunk costs the host one
+replay and the copies out instead of some 580 dispatches and six kernel
+launches. The device sweep runs after the replay, eagerly.
 """
 
 from __future__ import annotations
@@ -45,6 +55,7 @@ import torch
 from ..models import SOMA_MODEL_INPUT, SOMA_MODEL_LIF
 from .conv import conv_deliver, conv_results, full_float32_matmul
 from .device_sweep import unpack_masks
+from .graphs import Captured, capture, replay
 from .level_scan import PARAM_KEYS, level_kernel
 from .step import (
     DeviceProgram,
@@ -242,9 +253,13 @@ def rollup_stats(prog: DeviceProgram, a, fired_f, upd_f):
 
 def make_dag_body(prog: DeviceProgram, plan: DagPlan) -> Callable:
     """The DAG engine of one program: ``run(state, t0, length) -> (state,
-    outputs)`` runs ``length`` steps from 1-based step ``t0`` with the step
-    scan's state and output contract (``ops/scan.py``). The level index
-    tensors are moved to the device once, here."""
+    outputs)`` runs ``length`` steps from 1-based step ``t0`` (an int, or a
+    0-d int64 tensor on the program's device, which the level kernel reads
+    there) with the step scan's state and output contract
+    (``ops/scan.py``). It reads no tensor value back to the host, so a
+    CUDA graph captures it whole (``DagGraphs``). The level index tensors
+    and the levels' parameter slices are made once, here: a program whose
+    arrays change needs a new body."""
     c = prog.compiled
     cd = prog.conv_delivery
     a = prog.arrays
@@ -273,7 +288,10 @@ def make_dag_body(prog: DeviceProgram, plan: DagPlan) -> Callable:
         })
     has_block = prog.block is not None and prog.block.weights.shape[0] > 0
 
-    def run(state: dict, t0: int, T: int):
+    def run(state: dict, t0, T: int):
+        if not isinstance(t0, torch.Tensor):
+            # a fill, not a copy from the host: no synchronisation
+            t0 = torch.full((), t0, dtype=torch.int64, device=dev)
         ts = t0 + torch.arange(T, dtype=torch.int64, device=dev)
         zero = torch.zeros((), dtype=dtype, device=dev)
         asm_fired = torch.zeros((T, n), dtype=torch.bool, device=dev)
@@ -399,13 +417,86 @@ def make_dag_body(prog: DeviceProgram, plan: DagPlan) -> Callable:
     return run
 
 
+def _layout(tensors: dict) -> dict:
+    return {key: (value.shape, value.dtype) for key, value in tensors.items()}
+
+
+class DagGraphs:
+    """The DAG engine of one program as CUDA graphs, one a chunk length.
+
+    A static state (made at the first chunk) and a static step tensor are
+    the graphs' inputs. ``run`` copies the chunk's state in and the step
+    into its tensor, replays the graph of the chunk's length, and copies
+    the new state and the outputs out into tensors of their own, so that
+    a caller keeping a chunk's outputs still holds them after the next
+    chunk. A length is captured at its first chunk (``ops/graphs.py:
+    capture``: that chunk runs eagerly on a side stream, its results
+    kept); every graph draws on one memory pool. A capture or replay error
+    raises. The launch counters stay true (``ops/graphs.py``); ``replays``
+    counts the replays.
+
+    On the CPU the chunks run eagerly, in the same form (the same buffers
+    and copies), so the CPU tests run the code the card captures. Built
+    with the program's engine (``chip.py``), whose rebuild drops it: the
+    body's parameter slices are fixed when it is made."""
+
+    def __init__(self, prog: DeviceProgram, body: Callable):
+        self.prog = prog
+        self.body = body
+        self.capture = prog.device.type == "cuda"
+        self.state: Optional[dict] = None
+        self.t = torch.zeros((), dtype=torch.int64, device=prog.device)
+        self.chunks: dict[int, Captured] = {}
+        self.pool = torch.cuda.graph_pool_handle() if self.capture else None
+        self.replays = 0
+
+    def run(self, state: dict, t0: int, length: int):
+        """``length`` steps from step ``t0``: the state after them and the
+        named outputs (``make_dag_body``), in tensors of their own."""
+        if self.state is None:
+            self.state = {key: torch.empty_like(value)
+                          for key, value in state.items()}
+        if _layout(state) != _layout(self.state):
+            raise ValueError("DagGraphs: the state does not match the layout "
+                             "its graphs were built for")
+        for key, value in state.items():
+            self.state[key].copy_(value)
+        self.t.fill_(t0)
+        new_state, outputs = self._chunk(length)
+        return ({key: value.clone() for key, value in new_state.items()},
+                {key: value.clone() for key, value in outputs.items()})
+
+    def _body(self, length: int) -> tuple:
+        return self.body(dict(self.state), self.t, length)
+
+    def _chunk(self, length: int) -> tuple:
+        """One chunk over the static buffers: eagerly on the CPU; on the
+        card a replay, or at the length's first chunk the warm-up and the
+        capture."""
+        if not self.capture:
+            return self._body(length)
+        chunk = self.chunks.get(length)
+        if chunk is not None:
+            self.replays += 1
+            return replay(chunk)
+        outputs, self.chunks[length] = capture(
+            lambda: self._body(length), self.prog.device, self.pool)
+        return outputs
+
+
 def run_dag(body: Callable, prog: DeviceProgram, state: dict, t0: int,
-            length: int, sweep: Optional[Callable] = None):
-    """Run one chunk through a DAG body (``make_dag_body``) and, with
-    ``sweep``, the device sweep over its masks, as ``ops/scan.py:run_scan``
-    does: returns the state after the chunk and the named outputs."""
+            length: int, sweep: Optional[Callable] = None,
+            graphs: Optional[DagGraphs] = None):
+    """Run one chunk through a DAG body (``make_dag_body``), or through
+    ``graphs`` (the body's ``DagGraphs``) where given, and, with ``sweep``,
+    the device sweep over its masks, after the chunk and eagerly, as
+    ``ops/scan.py:run_scan`` does: returns the state after the chunk and
+    the named outputs."""
     with full_float32_matmul():
-        state, outputs = body(state, t0, length)
+        if graphs is not None and length:
+            state, outputs = graphs.run(state, t0, length)
+        else:
+            state, outputs = body(state, t0, length)
     if sweep is not None and length:
         fired, updated = unpack_masks(outputs["masks_packed"],
                                       prog.compiled.n_neurons)

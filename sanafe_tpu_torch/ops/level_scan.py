@@ -18,7 +18,10 @@ Both take the level's parameter vectors ``params`` (``bias``,
 ``reverse_reset_mode``, ``force_update``; ``[size]`` each), the state
 before the chunk (``v0``, ``u0``, ``r0``), the ``[T, size]`` input planes
 (``cur_seq`` currents, ``val_seq`` arrivals, ``add_seq`` the LIF noise or
-None) and the 1-based step ``t0`` of row 0. They return ``LevelOut``: the
+None) and the 1-based step ``t0`` of row 0: an int, or a 0-d int64 tensor
+on the level's device, which the kernel reads on the card, so that a CUDA
+graph that captured its launch (``ops/dag_chunk.py:DagGraphs``) replays it
+for whatever step the tensor then holds. They return ``LevelOut``: the
 fired and updated planes ``[T, size]`` (bool), the potential and input
 current after every step (``[T, size]``, only where asked for) and the
 state after the last step.
@@ -53,7 +56,7 @@ class LevelOut(NamedTuple):
 
 
 def level_plain(params: dict, v0, u0, r0, cur_seq, val_seq, add_seq,
-                t0: int, record_v: bool = False,
+                t0, record_v: bool = False,
                 record_u: bool = False) -> LevelOut:
     """Plain PyTorch version of the level kernel (module docstring)."""
     v, u, r = v0, u0, r0
@@ -84,7 +87,7 @@ def _library() -> ctypes.CDLL:
     lib.sanafe_level_launch.restype = ctypes.c_int
     lib.sanafe_level_launch.argtypes = [
         ctypes.POINTER(ctypes.c_void_p), ctypes.c_int, ctypes.c_int,
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.sanafe_level_error_string.restype = ctypes.c_char_p
     lib.sanafe_level_error_string.argtypes = [ctypes.c_int]
@@ -102,7 +105,7 @@ def _check(name, x, shape, dtype, device):
 
 
 def level_kernel(params: dict, v0, u0, r0, cur_seq, val_seq, add_seq,
-                 t0: int, record_v: bool = False,
+                 t0, record_v: bool = False,
                  record_u: bool = False) -> LevelOut:
     """The level recurrence: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors. Same arguments and result as ``level_plain``.
@@ -133,6 +136,10 @@ def level_kernel(params: dict, v0, u0, r0, cur_seq, val_seq, add_seq,
     _check("val_seq", val_seq, (steps, size), torch.bool, dev)
     if add_seq is not None:
         _check("add_seq", add_seq, (steps, size), f32, dev)
+    if not isinstance(t0, torch.Tensor):
+        # a fill, not a copy from the host: no synchronisation
+        t0 = torch.full((), int(t0), dtype=torch.int64, device=dev)
+    _check("t0", t0, (), torch.int64, dev)
 
     fired = torch.empty((steps, size), dtype=torch.bool, device=dev)
     updated = torch.empty((steps, size), dtype=torch.bool, device=dev)
@@ -151,8 +158,8 @@ def level_kernel(params: dict, v0, u0, r0, cur_seq, val_seq, add_seq,
         *[None if x is None else x.data_ptr() for x in tensors])
     lib = _library()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.sanafe_level_launch(ptrs, size, steps, int(t0), dev.index or 0,
-                                  stream)
+    err = lib.sanafe_level_launch(ptrs, size, steps, t0.data_ptr(),
+                                  dev.index or 0, stream)
     if err:
         raise RuntimeError("level kernel launch failed: "
                            + lib.sanafe_level_error_string(err).decode())

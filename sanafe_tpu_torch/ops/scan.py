@@ -39,37 +39,21 @@ replays, eagerly, as in the eager loop. A sharded program stays eager.
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
-from . import chunk, delivery, device_sweep, level_scan, merge_sweep
 from .conv import full_float32_matmul
 from .dag_chunk import rollup_stats
 from .device_sweep import unpack_masks
+from .graphs import Captured, capture, replay
 from .step import DeviceProgram, _timestep
 
 # Steps a captured graph holds: sanafe_tpu's unroll for fused-roll-up
 # chips (sanafe_tpu/ops/step.py:474-486). A chunk replays it
 # ceil(length / GRAPH_UNROLL) times; a shorter remainder is a second graph.
 GRAPH_UNROLL = 16
-
-# The kernel wrappers' launch counters (module, wrapper name), read through
-# the module so that a wrapper replaced by a caller is still counted
-_COUNTED = ((chunk, "chunk_kernel"), (delivery, "delivery_kernel"),
-            (delivery, "delivery_batch_kernel"),
-            (merge_sweep, "merge_kernel"), (level_scan, "level_kernel"),
-            (device_sweep, "prefix_kernel"))
-
-
-def _launch_counts() -> list:
-    return [getattr(module, name).launches for module, name in _COUNTED]
-
-
-def _add_launches(deltas) -> None:
-    for (module, name), delta in zip(_COUNTED, deltas):
-        getattr(module, name).launches += delta
 
 
 def steps(prog: DeviceProgram, a: dict, state: dict, t: torch.Tensor,
@@ -90,15 +74,6 @@ def steps(prog: DeviceProgram, a: dict, state: dict, t: torch.Tensor,
                    for key, values in outputs.items()}
 
 
-class _Block(NamedTuple):
-    """One captured graph of ``count`` steps: its static outputs and the
-    launch counts its capture saw, added back at each replay."""
-
-    graph: torch.cuda.CUDAGraph
-    outputs: dict
-    launches: list
-
-
 class ScanGraphs:
     """The step scan of one program as CUDA graphs of ``GRAPH_UNROLL``
     steps.
@@ -112,11 +87,8 @@ class ScanGraphs:
     tensors with one copy an output, and copies the state out once. Each
     block size is captured at its first use: that block runs eagerly on a
     side stream first (the warm-up, whose results are kept), then is
-    captured. A capture or replay error raises.
-
-    The kernel wrappers count launches in Python, which a replay does not
-    run: each graph keeps the counts its capture added, takes them back
-    from the counters, and adds them again at every replay. ``replays``
+    captured (``ops/graphs.py:capture``). A capture or replay error
+    raises. The launch counters stay true (``ops/graphs.py``); ``replays``
     counts the replays.
 
     On the CPU the blocks run eagerly, in the same form (the same buffers
@@ -132,7 +104,7 @@ class ScanGraphs:
         self.state: Optional[dict] = None
         self.feeds: Optional[dict] = None
         self.t = torch.zeros((), dtype=torch.int64, device=prog.device)
-        self.blocks: dict[int, _Block] = {}
+        self.blocks: dict[int, Captured] = {}
         self.pool = torch.cuda.graph_pool_handle() if self.capture else None
         self.replays = 0
 
@@ -204,24 +176,10 @@ class ScanGraphs:
             return self._body(count)
         block = self.blocks.get(count)
         if block is not None:
-            block.graph.replay()
-            _add_launches(block.launches)
             self.replays += 1
-            return block.outputs
-        dev = self.prog.device
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            outputs = self._body(count)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        before = _launch_counts()
-        with torch.cuda.graph(graph, pool=self.pool,
-                              capture_error_mode="thread_local"):
-            captured = self._body(count)
-        deltas = [after - was for after, was in zip(_launch_counts(), before)]
-        _add_launches([-delta for delta in deltas])
-        self.blocks[count] = _Block(graph, captured, deltas)
+            return replay(block)
+        outputs, self.blocks[count] = capture(
+            lambda: self._body(count), self.prog.device, self.pool)
         return outputs
 
 

@@ -34,6 +34,7 @@ Card only (``python -m pytest tests/test_torch_cuda.py -m cuda
 --noconftest``); the tests skip where there is no card.
 """
 
+import os
 from pathlib import Path
 
 import numpy as np
@@ -135,7 +136,9 @@ def _assert_level_equal(a, b, what):
 
 def _capture_levels(chip_args, steps, device):
     """The level kernel's arguments of each level of the first DAG chunk of
-    a ``steps``-step run (the inputs the DAG engine really gives it)."""
+    a ``steps``-step run (the inputs the DAG engine really gives it). The
+    run is eager (``SANAFE_TPU_GRAPH=0``): a captured chunk's replay calls
+    no wrapper."""
     from sanafe_tpu_torch.ops import dag_chunk
 
     calls = []
@@ -146,6 +149,8 @@ def _capture_levels(chip_args, steps, device):
         return real(*args)
 
     dag_chunk.level_kernel = capture
+    saved = os.environ.get("SANAFE_TPU_GRAPH")
+    os.environ["SANAFE_TPU_GRAPH"] = "0"
     try:
         chip = st.SpikingChip(chip_args[0], device=device)
         chip.load(chip_args[1])
@@ -153,6 +158,10 @@ def _capture_levels(chip_args, steps, device):
                           potential_trace=True, neuron_trace=True)
     finally:
         dag_chunk.level_kernel = real
+        if saved is None:
+            os.environ.pop("SANAFE_TPU_GRAPH")
+        else:
+            os.environ["SANAFE_TPU_GRAPH"] = saved
     assert result["device_engine"] == "dag"
     return calls
 

@@ -30,8 +30,11 @@ is copied into their static state; ``set_attributes`` drops them.
 
 The card test (``-m cuda``, skipped here) holds the captured scan to the
 eager scan bit for bit on a 4096-neuron chip in both dtypes, and on the
-small chips above. sanafe_tpu and JAX are imported inside the tests that
-use them, so the card's machine, which has neither, imports this file.
+small chips above; and the DVS net's captured DAG chunk
+(``ops/dag_chunk.py:DagGraphs``) to the eager DAG body. The DAG engine's
+graph form on the CPU is held in ``tests/test_torch_dag_graph.py``.
+sanafe_tpu and JAX are imported inside the tests that use them, so the
+card's machine, which has neither, imports this file.
 """
 
 import functools
@@ -49,6 +52,7 @@ from sanafe_tpu_torch.ops import step as port_step
 from sanafe_tpu_torch.ops.scan import GRAPH_UNROLL, ScanGraphs, run_scan
 
 from test_torch_chips import (
+    dvs_chip,
     example_chip,
     hh_chip,
     neurofem_chip,
@@ -486,3 +490,55 @@ def test_captured_sweep_equals_eager_on_cuda(cuda, monkeypatch):
     for key in outs["0"]["energy"]:
         np.testing.assert_array_equal(outs["1"]["energy"][key],
                                       outs["0"]["energy"][key])
+
+
+@pytest.mark.cuda
+def test_captured_dvs_chunk_equals_eager_on_cuda(cuda):
+    """The DVS net's DAG chunk on the card, every output recorded: chunks
+    of 200, 73, 200 and 73 steps through one ``DagGraphs`` (each length
+    captured at its first chunk, replayed after) give the eager body's
+    masks, stats, spike log, potential and u logs and state bit for bit,
+    with the level kernel counted six launches a chunk in both modes; the
+    first chunk's outputs are unchanged after the later chunks."""
+    from sanafe_tpu_torch.ops import level_scan
+    from sanafe_tpu_torch.ops.dag_chunk import (
+        DagGraphs,
+        make_dag_body,
+        plan_dag,
+        run_dag,
+    )
+
+    arch, net = dvs_chip(st)
+    chip = st.SpikingChip(arch, device=cuda)
+    chip.load(net)
+    prog = port_step.make_device_program(chip.compiled, cuda, torch.float32,
+                                          **FLAGS)
+    assert prog.graph
+    body = make_dag_body(prog, plan_dag(prog))
+    graphs = DagGraphs(prog, body)
+    e_state = g_state = prog.init_state()
+    t, first = 1, None
+    for length in (200, 73, 200, 73):
+        before = level_scan.level_kernel.launches
+        e_state, e_out = run_dag(body, prog, e_state, t, length)
+        between = level_scan.level_kernel.launches
+        g_state, g_out = run_dag(body, prog, g_state, t, length,
+                                 graphs=graphs)
+        after = level_scan.level_kernel.launches
+        torch.cuda.synchronize()
+        assert between - before == after - between == 6
+        assert sorted(g_out) == sorted(e_out)
+        for key, value in e_out.items():
+            assert torch.equal(g_out[key].view(torch.uint8),
+                               value.view(torch.uint8)), (key, t)
+        for key, value in e_state.items():
+            assert torch.equal(g_state[key].view(torch.uint8),
+                               value.view(torch.uint8)), (key, t)
+        if first is None:
+            first = (g_out, {k: v.clone() for k, v in g_out.items()})
+        t += length
+    assert graphs.replays == 2 and set(graphs.chunks) == {200, 73}
+    for key, value in first[1].items():
+        assert torch.equal(first[0][key].view(torch.uint8),
+                           value.view(torch.uint8)), key
+    assert e_out["stats"][:, 4].sum() > 0
