@@ -28,13 +28,15 @@ own line:
 4. chunk timing: timesteps/s of the kernel and of chunk_plain on CUDA
    tensors on the random network, the kernel's on the example chip, and
    the host's wall split of a simple run through SpikingChip;
-5. delivery kernel vs plain: the activity-gated delivery kernel against
-   delivery_plain on the same card tensors, on the blocks of the TCAD'25
-   "full" random network (128 cores x 256 neurons, float32) and of a
-   4096-neuron random chip (float64), with no, one tile's, 25% and all
-   neurons fired, and with every other source tile fired whole and the
-   rest silent: currents equal (integer weights) and the kernel's arrivals
-   equal to delivery_plain's counts > 0;
+5. delivery kernel vs plain: the activity-gated delivery kernel, reading
+   the live rows (build_live_rows of the blocks), against delivery_plain
+   and delivery_live_plain on the same card tensors, on the blocks of the
+   TCAD'25 "full" random network (128 cores x 256 neurons, float32) and of
+   a 4096-neuron random chip (float64: 16 tiles, rows cut into column
+   slices), with no, one tile's, 25% and all neurons fired, and with every
+   other source tile fired whole and the rest silent: currents equal to
+   delivery_plain's (integer weights) and to delivery_live_plain's bit for
+   bit, and the kernel's arrivals equal to delivery_plain's counts > 0;
 6. the step scan at full width: SpikingChip(device="cuda") on the full
    random network, 1000 steps simple then 200 steps detailed with the spike
    trace; the engine must be the scan and the delivery kernel must have
@@ -45,13 +47,19 @@ own line:
    exactly): the 4096-neuron chip in float32, load_example() in float64 with
    the perf trace (perf.csv byte-identical), the 384-neuron chip with the
    perf trace (float32: counters exact, floats within 1e-6 relative);
-8. delivery timing: the kernel's ms per step beside delivery_plain's on
-   CUDA tensors, on the full-width chip's fired pattern at step 50, and
-   beside one torch.mm of that fired row against the chip's dense weight
-   matrix (the library call computing the same currents; timed only); the
-   bound from the bytes the kernel has to read (fired weight rows and one
-   arrival bit a cell), beside the bound of the earlier kernel's bytes (a
-   count byte a cell);
+8. delivery timing on the full-width chip's fired pattern at step 50: the
+   kernel's ms with its launches queued ahead (queued_ms, on the
+   program's checked operands; beside it CUDA events around back-to-back
+   calls) and delivery_batch_kernel's at one sample on the same list,
+   both held bit for bit to delivery_live_plain and to each other;
+   delivery_plain's ms on CUDA tensors; the queued ms of torch.sparse.mm
+   of the transposed CSR matrix of the non-zero cells against the fired
+   row (the library call) and of torch.mm against the dense weight matrix
+   (both timed only, currents equal); the bound from the bytes the kernel
+   has to read (the live rows fired this step, their weights and arrival
+   words, the fired plane, the list and its offsets, and the outputs) and
+   the share of it reached, beside the figure of every fired row of every
+   active block (what the kernel read before it took the list);
 9. merge kernel vs plain: the detailed-timing merge kernel against
    merge_plain on the same card tensors (message tables built once by
    build_messages): example (float64), random384 (float32, float64), the
@@ -92,8 +100,8 @@ own line:
    through the DAG engine, through the scan with conv delivery
    (SANAFE_TPU_DAG=0), through the scan with the delivery kernel
    (SANAFE_CONV_DELIVERY=0; the kernel must have run, and its currents
-   and arrivals on every step of that run must equal
-   delivery_packed_plain's on the same card tensors bit for bit) and
+   and arrivals on every step of that run must equal delivery_live_plain's
+   and delivery_packed_plain's on the same card tensors bit for bit) and
    through a device="cpu" DAG run: spikes.csv bytes and counters equal,
    energies within 1e-6 relative, and each route's simple steps/s (three
    runs); 200 steps detailed with device_sweep=True (the DAG engine)
@@ -167,8 +175,9 @@ own line:
    destination tiles that hold its neurons): rank 0's spikes.csv
    byte-identical to one chip's, counters equal, energies within 1e-6
    relative, the delivery kernel launched in each rank's process on every
-   step and held to delivery_packed_plain on the rank's own blocks at step
-   50, with the steps/s, each rank's kernel ms and the exchange's ms a
+   step and held to delivery_packed_plain and delivery_live_plain on the
+   rank's own blocks and list at step 50, with the steps/s, each rank's
+   kernel ms (queued) and the exchange's ms a
    step; the float64 perf.csv byte-identical; the device sweep's sim_time
    equal, the merge kernel launched on rank 0 only; phase 15's 16-sample
    sweep split over the two ranks, equal to phase 15's sweep, with its
@@ -199,7 +208,9 @@ own line:
    after a warm run: the results and launch counts equal, the captured
    run ceil(steps / 16) replays, and for each mode steps/s, host and
    device ms a step (a profiled window), the busy share, device ops a
-   step and the replays (and a replay's device ms back to back); the
+   step and the replays (and a replay's device ms back to back), full's
+   captured numbers beside those of the delivery kernel that read every
+   fired row; the
    16-sample threshold sweep of full, 200 steps, captured and eager:
    every sample's counters, energies and sim_time bit for bit, one
    batched-kernel launch a step, ceil(200 / 16) replays, samples x
@@ -780,11 +791,15 @@ def fired_tiles(blk, n: int, pattern: str, dtype, device, seed: int = 7):
         blk.n_tiles, blk.tile)
 
 
-def delivery_args(blk, x, plane=None):
-    """delivery_plain's arguments or, with the packed arrival ``plane``,
-    delivery_kernel's."""
-    return (x, blk.weights, blk.counts if plane is None else plane,
-            blk.src_tiles, blk.dest_offsets, blk.max_blocks_per_dest)
+def delivery_args(blk, x, plane=None, live=None):
+    """delivery_plain's arguments or, with the packed arrival ``plane`` and
+    its live-row list ``live``, delivery_kernel's (and
+    delivery_live_plain's)."""
+    if plane is None:
+        return (x, blk.weights, blk.counts, blk.src_tiles, blk.dest_offsets,
+                blk.max_blocks_per_dest)
+    return (x, blk.weights, plane, blk.src_tiles, blk.dest_offsets,
+            blk.max_blocks_per_dest, live)
 
 
 def compare_results(a: dict, b: dict, name: str) -> None:
@@ -996,7 +1011,8 @@ def dvs_phase(st, cuda, card, tmp: Path) -> dict:
     from sanafe_tpu_torch.ops import dag_chunk, merge_sweep
     from sanafe_tpu_torch.ops import step as step_mod
     from sanafe_tpu_torch.ops.delivery import (
-        delivery_kernel,
+        delivery_launch,
+        delivery_live_plain,
         delivery_packed_plain,
     )
     from sanafe_tpu_torch.ops.merge_sweep import merge_plain
@@ -1153,13 +1169,14 @@ def dvs_phase(st, cuda, card, tmp: Path) -> dict:
               ("scan_delivery_kernel", cuda, {"SANAFE_CONV_DELIVERY": "0",
                                               "SANAFE_TPU_GRAPH": "0"}),
               ("dag_cpu", "cpu", {}))
-    # the delivery kernel's arguments and results on every step of the
-    # SANAFE_CONV_DELIVERY=0 trace run, held to its plain version below
+    # the delivery kernel's fired planes, operands and results on every
+    # step of the SANAFE_CONV_DELIVERY=0 trace run, held to its plain
+    # versions below
     deliveries = []
 
-    def capture_delivery(*args):
-        out = delivery_kernel(*args)
-        deliveries.append((args, out))
+    def capture_delivery(x, plan):
+        out = delivery_launch(x, plan)
+        deliveries.append(((x, *plan.args), out, plan))
         return out
 
     runs = {}
@@ -1171,10 +1188,10 @@ def dvs_phase(st, cuda, card, tmp: Path) -> dict:
         try:
             reset_counts()
             if name == "scan_delivery_kernel":
-                step_mod.delivery_kernel = capture_delivery
+                step_mod.delivery_launch = capture_delivery
             result = chip.sim(DVS_TRACE_STEPS, timing_model="simple",
                               heartbeat=0, spike_trace=path)
-            step_mod.delivery_kernel = delivery_kernel
+            step_mod.delivery_launch = delivery_launch
             chip.close()
             result["launches"] = read_counts()
             result["csv"] = path.read_bytes()
@@ -1201,7 +1218,7 @@ def dvs_phase(st, cuda, card, tmp: Path) -> dict:
                 device_us, top = device_busy(prof)
                 result["profile"] = (device_us * 1e-6 / wall, top[:3])
         finally:
-            step_mod.delivery_kernel = delivery_kernel
+            step_mod.delivery_launch = delivery_launch
             for k, v in saved.items():
                 if v is None:
                     os.environ.pop(k, None)
@@ -1226,23 +1243,29 @@ def dvs_phase(st, cuda, card, tmp: Path) -> dict:
     check(len(deliveries) == runs["scan_delivery_kernel"]["launches"][
         "delivery_kernel"], f"DVS delivery kernel: {len(deliveries)} "
           f"launches captured")
-    for i, (args, (cur, arrived)) in enumerate(deliveries):
-        want_cur, want_arrived = delivery_packed_plain(*args)
+    for i, (args, (cur, arrived), _) in enumerate(deliveries):
+        want_cur, want_arrived = delivery_live_plain(*args)
+        check(same_bits(cur, want_cur) and torch.equal(arrived, want_arrived),
+              f"DVS delivery kernel differs from delivery_live_plain at step "
+              f"{i}")
+        want_cur, want_arrived = delivery_packed_plain(*args[:-1])
         check(torch.equal(cur, want_cur)
               and torch.equal(arrived, want_arrived),
-              f"DVS delivery kernel differs from its plain version at step "
-              f"{i}")
-    busiest = max(deliveries, key=lambda d: float(d[0][0].sum()))[0]
-    dk_ms = cuda_ms(lambda: delivery_kernel(*busiest), 20)
-    dp_ms = cuda_ms(lambda: delivery_packed_plain(*busiest), 5)
+              f"DVS delivery kernel differs from delivery_packed_plain at "
+              f"step {i}")
+    busiest, _, plan = max(deliveries, key=lambda d: float(d[0][0].sum()))
+    dk_ms = queued_ms(lambda: delivery_launch(busiest[0], plan), 20)
+    dp_ms = cuda_ms(lambda: delivery_live_plain(*busiest), 5)
     print(f"delivery_kernel_vs_plain: DVS with SANAFE_CONV_DELIVERY=0 "
           f"({blk[1].shape[0]} blocks of {blk[1].shape[1]}x"
-          f"{blk[1].shape[2]}, {blk[0].shape[0]} tiles): currents and "
-          f"arrivals equal to delivery_packed_plain bit for bit on all "
+          f"{blk[1].shape[2]}, {blk[0].shape[0]} tiles, {blk[-1].count} "
+          f"live rows): currents and arrivals equal to delivery_live_plain "
+          f"and delivery_packed_plain bit for bit on all "
           f"{len(deliveries)} steps of the trace run; on the busiest step "
-          f"({int(busiest[0].sum())} fired) delivery_kernel {dk_ms} ms, "
-          f"delivery_packed_plain {dp_ms} ms | {card}", flush=True)
-    del deliveries, busiest, blk
+          f"({int(busiest[0].sum())} fired) delivery_kernel {dk_ms} ms "
+          f"(launches queued ahead), delivery_live_plain {dp_ms} ms "
+          f"| {card}", flush=True)
+    del deliveries, busiest, blk, plan
     for name, result in runs.items():
         check(result["csv"] == ref["csv"],
               f"DVS {name}: spikes.csv differs from the CPU DAG run")
@@ -1831,7 +1854,7 @@ def hold_batch(x, weights, arrivals, blk, live, name: str,
         a_b = arrivals[b] if arrivals.dim() == 4 else arrivals
         one_cur, one_arrived = delivery.delivery_kernel(
             x[b].contiguous(), w_b.contiguous(), a_b.contiguous(),
-            blk.src_tiles, blk.dest_offsets, blk.max_blocks_per_dest)
+            blk.src_tiles, blk.dest_offsets, blk.max_blocks_per_dest, live)
         check(same_bits(cur[b], one_cur) and torch.equal(arrived[b],
                                                          one_arrived),
               f"{name}: sample {b} differs from delivery_kernel")
@@ -2162,7 +2185,7 @@ def sweep_phase(st, cuda, card, full_step50, single_full) -> dict:
 
     def sixteen():
         for _ in range(PARAM_SAMPLES):
-            delivery.delivery_kernel(one_x, *args)
+            delivery.delivery_kernel(one_x, *args, live)
 
     single_ms = cuda_ms(sixteen, 5)
     plain_ms = cuda_ms(
@@ -2257,10 +2280,12 @@ class RefusedPlain:
             raise CheckFailed("a plain delivery ran on the card's mesh")
 
         self.saved = (step.delivery_plain, delivery.delivery_packed_plain,
+                      delivery.delivery_live_plain,
                       delivery.delivery_batch_plain)
         if self.on:
             step.delivery_plain = refuse
             delivery.delivery_packed_plain = refuse
+            delivery.delivery_live_plain = refuse
             delivery.delivery_batch_plain = refuse
         return self
 
@@ -2268,7 +2293,8 @@ class RefusedPlain:
         from sanafe_tpu_torch.ops import delivery, step
 
         (step.delivery_plain, delivery.delivery_packed_plain,
-         delivery.delivery_batch_plain) = self.saved
+         delivery.delivery_live_plain, delivery.delivery_batch_plain) = (
+            self.saved)
         return False
 
 
@@ -2321,12 +2347,14 @@ def mesh_full(st, mesh, dev, out: Path, tag: str, ctx: dict) -> dict:
         :prog.compiled.n_neurons]
     x = torch.from_numpy(fired).to(dev).view(blk.n_tiles, blk.tile)
     args = (x, blk.weights, blk.arrivals, blk.src_tiles, blk.dest_offsets,
-            blk.max_blocks_per_dest)
-    cur, arrived = delivery.delivery_kernel(*args)
-    ref_cur, ref_arrived = ctx["packed_plain"](*args)
-    check(torch.equal(cur, ref_cur) and torch.equal(arrived, ref_arrived),
+            blk.max_blocks_per_dest, blk.plan.live_rows)
+    cur, arrived = delivery.delivery_launch(x, blk.plan)
+    ref_cur, ref_arrived = ctx["packed_plain"](*args[:-1])
+    live_cur, live_arrived = ctx["live_plain"](*args)
+    check(torch.equal(cur, ref_cur) and torch.equal(arrived, ref_arrived)
+          and same_bits(cur, live_cur) and torch.equal(arrived, live_arrived),
           f"{tag} rank {mesh.get_local_rank()}: the delivery kernel differs "
-          f"from its plain version on the rank's blocks")
+          f"from its plain versions on the rank's blocks")
     # one rank at a time, the others waiting in a collective, so that no
     # other process shares the card while a rank is timed
     import torch.distributed as dist
@@ -2334,7 +2362,8 @@ def mesh_full(st, mesh, dev, out: Path, tag: str, ctx: dict) -> dict:
     kernel_ms = None
     for turn in range(mesh.size()):
         if turn == mesh.get_local_rank() and torch.device(dev).type == "cuda":
-            kernel_ms = cuda_ms(lambda: delivery.delivery_kernel(*args), 20)
+            kernel_ms = queued_ms(
+                lambda: delivery.delivery_launch(x, blk.plan), 20)
         dist.all_reduce(torch.zeros(1, device=dev), group=mesh.get_group())
     owned = torch.nonzero(blk.dest_offsets[1:] > blk.dest_offsets[:-1])
     result = {
@@ -2352,6 +2381,7 @@ def mesh_full(st, mesh, dev, out: Path, tag: str, ctx: dict) -> dict:
         "lo_hi": (prog.shard.lo, prog.shard.hi),
     }
     del prog, o, blk, x, args, cur, arrived, ref_cur, ref_arrived
+    del live_cur, live_arrived
     if torch.device(dev).type == "cuda":
         torch.cuda.empty_cache()
     return result
@@ -2470,6 +2500,7 @@ def rank_main(rank: int, world: int, backend: str, store: str, out: str,
                                 mesh_dim_names=("cores",))
         tag = f"{backend}{world}"
         ctx = {"packed_plain": delivery.delivery_packed_plain,
+               "live_plain": delivery.delivery_live_plain,
                "batch_plain": delivery.delivery_batch_plain}
         results = {}
         with RefusedPlain(dev):
@@ -3017,8 +3048,8 @@ def graph_phase(st, cuda, card) -> None:
         print(f"graph_equal: {held} OK | {card}", flush=True)
         del chip, prog
         torch.cuda.empty_cache()
-        graph_line(name, steps, graph_pair(make, steps, profile_steps, name),
-                   card)
+        modes = graph_pair(make, steps, profile_steps, name)
+        graph_line(name, steps, modes, card)
 
     # --- 18b. the 16-sample threshold sweep of full ---
     chip = loaded(random_chip, torch.float32, **FULL)
@@ -3510,12 +3541,14 @@ def run(tmp: Path, through=None) -> int:
         torch.cuda.synchronize()
         blk_s = time.perf_counter() - start
         plane = delivery.pack_arrival_plane(blk.counts)
+        live = delivery.build_live_rows(blk.weights, plane)
         for pattern in PATTERNS:
             x = fired_tiles(blk, compiled.n_neurons, pattern, dtype, cuda)
-            cur, arrived = delivery.delivery_kernel(
-                *delivery_args(blk, x, plane))
+            args = delivery_args(blk, x, plane, live)
+            cur, arrived = delivery.delivery_kernel(*args)
             ref_cur, ref_cnt = delivery.delivery_plain(
                 *delivery_args(blk, x))
+            live_cur, live_arrived = delivery.delivery_live_plain(*args)
             torch.cuda.synchronize()
             check(cur.dtype == dtype and arrived.dtype == torch.bool,
                   f"{name} {pattern}: result dtypes")
@@ -3524,6 +3557,10 @@ def run(tmp: Path, through=None) -> int:
             check(torch.equal(arrived, ref_cnt > 0),
                   f"{name} {pattern}: arrivals differ from delivery_plain's "
                   f"counts > 0")
+            check(same_bits(cur, live_cur)
+                  and torch.equal(arrived, live_arrived),
+                  f"{name} {pattern}: the kernel differs from "
+                  f"delivery_live_plain")
             err = float((cur - ref_cur).abs().max())
             delivery_err = max(delivery_err, err)
             whole = int((x.sum(dim=1) == blk.tile).sum())
@@ -3532,15 +3569,18 @@ def run(tmp: Path, through=None) -> int:
                   f"{str(dtype)[6:]} blocks={blk.weights.shape[0]} "
                   f"tile={blk.tile} pattern={pattern} fired="
                   f"{int(x.sum())} (source tiles fired whole {whole}, "
-                  f"silent {silent}) reached={int(arrived.sum())} "
-                  f"max_abs_err={err} (currents equal, arrivals equal to "
-                  f"counts > 0) OK")
+                  f"silent {silent}) reached={int(arrived.sum())} live rows "
+                  f"{live.count} of {blk.weights.shape[0] * blk.tile}; "
+                  f"max_abs_err={err} (currents "
+                  f"equal to delivery_plain's and to delivery_live_plain's "
+                  f"bit for bit, arrivals equal to counts > 0) OK")
         print(f"delivery_setup: {name} block build {blk_s} s, weights "
               f"{blk.weights.numel() * blk.weights.element_size()} B, counts "
               f"{blk.counts.numel()} B (delivery_plain only), packed "
               f"arrival plane {plane.numel() * 4} B; compile of both chips "
               f"{compile_s} s")
-        del blk, plane, x, cur, arrived, ref_cur, ref_cnt
+        del blk, plane, live, args, x, cur, arrived, ref_cur, ref_cnt
+        del live_cur, live_arrived
     torch.cuda.empty_cache()
     if through == 5:
         torch.cuda.synchronize()
@@ -3734,42 +3774,75 @@ def run(tmp: Path, through=None) -> int:
     # --- 8. delivery timing on the full-width chip's own fired pattern ---
     blk = build_block_delivery(full_compiled, torch.float32, cuda)
     plane = delivery.pack_arrival_plane(blk.counts)
+    live = delivery.build_live_rows(blk.weights, plane)
     masks = outs[True]["masks_packed"]
     fired = np.zeros(blk.n_pad, dtype=bool)
     fired[:n_full] = np.unpackbits(masks[-1, 0])[:n_full].astype(bool)
     x = torch.from_numpy(fired).to(device=cuda, dtype=torch.float32).view(
         blk.n_tiles, blk.tile)
-    args = delivery_args(blk, x, plane)
+    x1 = x[None].contiguous()
+    args = delivery_args(blk, x, plane, live)
     plain_args = delivery_args(blk, x)
-    delivery_ms = cuda_ms(lambda: delivery.delivery_kernel(*args), 50)
+    # the operands checked once, as a program checks them: the launches
+    # alone, queued ahead (the kernels take microseconds, a wrapper's host
+    # time between back-to-back calls about as much), the two kernels in
+    # turns
+    plan = delivery.plan_delivery(*args[1:])
+    batch_plan = delivery.plan_delivery_batch(1, *args[1:])
+    turns = []
+    for kernel in ("single", "batch", "batch", "single"):
+        turns.append(queued_ms(
+            (lambda: delivery.delivery_launch(x, plan)) if kernel == "single"
+            else (lambda: delivery.delivery_batch_launch(x1, batch_plan)),
+            50))
+    delivery_ms = (turns[0] + turns[3]) / 2
+    batch_one_ms = (turns[1] + turns[2]) / 2
+    wall_ms = cuda_ms(lambda: delivery.delivery_launch(x, plan), 50)
+    live_plain_ms = cuda_ms(lambda: delivery.delivery_live_plain(*args), 5)
     delivery_plain_ms = cuda_ms(lambda: delivery.delivery_plain(*plain_args),
                                 5)
     active = int(x.any(dim=1).sum())
-    # bytes the kernel must read: the fired rows of every active block, a
-    # float32 and one arrival bit a cell; one add a cell. The earlier
-    # kernel read a count byte a cell instead of the bit.
-    rows = int(x.sum(dim=1)[blk.src_tiles.long()].sum())
+    # bytes the kernel must read: the live rows fired this step, a float32
+    # a cell and their arrival words, the fired plane, the list and its
+    # tiles' offsets; written: the currents and arrived bytes. One add a
+    # cell of those rows.
     words = plane.shape[2]
-    read_b = rows * (blk.tile * 4 + words * 4)
-    fixed_b = (x.numel() * 4 + blk.n_pad * 5 + blk.src_tiles.numel() * 4
+    fired_live, adds = live_fired(x1, blk, live)
+    read_b = fired_live * (blk.tile * 4 + words * 4)
+    fixed_b = (x.numel() * 4 + plan.entries.numel() * 4
+               + plan.tile_entries.numel() * 4 + blk.n_pad * 5)
+    delivery_bound, delivery_bound_by = bound(read_b + fixed_b, adds,
+                                              F32_ADDS_S)
+    # what the kernel read before it took the list: every fired row of
+    # every active block and one arrival bit a cell
+    rows = int(x.sum(dim=1)[blk.src_tiles.long()].sum())
+    every_b = (rows * (blk.tile * 4 + words * 4) + x.numel() * 4
+               + blk.n_pad * 5 + blk.src_tiles.numel() * 4
                + blk.dest_offsets.numel() * 4)
-    delivery_bound, delivery_bound_by = bound(read_b + fixed_b,
-                                              rows * blk.tile)
-    earlier_bound, _ = bound(rows * blk.tile * 5 + x.numel() * 4
-                             + blk.n_pad * 8, rows * blk.tile * 2)
-    # the library call: the fired row against the dense [N, N] weights
+    every_bound, every_bound_by = bound(every_b, rows * blk.tile)
+    # the library calls: the fired row against the dense [N, N] weights,
+    # and the sparse product, which reads the 260k edge cells
     dense = dense_weights(blk)
     row = x.reshape(1, -1)
-    library_ms = cuda_ms(lambda: torch.mm(row, dense), 20)
-    # the sparse product reads the 260k edge cells, not the dense matrix
+    mm_ms = queued_ms(lambda: torch.mm(row, dense), 20)
     csr = csr_weights(blk)
     col = row.t().contiguous()
-    sparse_ms = queued_ms(lambda: torch.sparse.mm(csr, col), 20)
-    cur, arrived = delivery.delivery_kernel(*args)
+    library_ms = queued_ms(lambda: torch.sparse.mm(csr, col), 20)
+    cur, arrived = delivery.delivery_launch(x, plan)
     ref_cur, ref_cnt = delivery.delivery_plain(*plain_args)
+    live_cur, live_arrived = delivery.delivery_live_plain(*args)
+    batch_cur, batch_arrived = delivery.delivery_batch_launch(x1, batch_plan)
     check(torch.equal(cur, ref_cur) and torch.equal(arrived, ref_cnt > 0),
           "delivery: the kernel differs from delivery_plain on the scan's "
           "own fired pattern")
+    check(same_bits(cur, live_cur) and torch.equal(arrived, live_arrived),
+          "delivery: the kernel differs from delivery_live_plain on the "
+          "scan's own fired pattern")
+    check(same_bits(cur, batch_cur[0])
+          and torch.equal(arrived, batch_arrived[0]),
+          "delivery: the kernel differs from delivery_batch_kernel at one "
+          "sample on the scan's own fired pattern")
+    delivery_err = max(delivery_err, float((cur - ref_cur).abs().max()))
     library_err = max(
         float((torch.mm(row, dense).reshape(cur.shape) - cur).abs().max()),
         float((torch.sparse.mm(csr, col).reshape(cur.shape) - cur)
@@ -3779,22 +3852,30 @@ def run(tmp: Path, through=None) -> int:
           "weights)")
     print(f"delivery_timing: full step {SCAN_COMPARE_STEPS} fired "
           f"{int(fired.sum())}/{n_full}, {active}/{blk.n_tiles} source tiles "
-          f"active, {blk.weights.shape[0]} blocks: delivery_kernel "
-          f"{delivery_ms} ms ({read_b / delivery_ms * 1e-6} GB/s of fired "
-          f"rows, {read_b} B), delivery_plain on CUDA tensors "
-          f"{delivery_plain_ms} ms, torch.mm against the dense "
-          f"{blk.n_pad}x{blk.n_pad} float32 weights {library_ms} ms, "
+          f"active, {blk.weights.shape[0]} blocks, {fired_live} of "
+          f"{live.count} live rows fired ({rows} fired block rows): "
+          f"delivery_kernel {delivery_ms} "
+          f"ms (launches queued ahead; CUDA events around back-to-back "
+          f"calls {wall_ms} ms; {read_b / delivery_ms * 1e-6} GB/s of live "
+          f"fired rows, {read_b} B), delivery_batch_kernel at one sample on "
+          f"the same list {batch_one_ms} ms (in turns, single / batch / "
+          f"batch / single: {turns}); currents and arrivals equal to "
+          f"delivery_live_plain's and delivery_batch_kernel's bit for bit "
+          f"and to delivery_plain's; delivery_live_plain on CUDA tensors "
+          f"{live_plain_ms} ms, delivery_plain {delivery_plain_ms} ms; "
           f"torch.sparse.mm of the transposed CSR matrix "
           f"({csr.values().numel()} non-zero cells) against the fired row "
-          f"{sparse_ms} ms (launches queued ahead; currents equal); bound "
-          f"{delivery_bound} ms "
-          f"({delivery_bound_by}; {delivery_bound / delivery_ms} of it "
-          f"reached); the earlier kernel's bytes (a count byte a cell, "
-          f"{rows * blk.tile * 5} B) bound {earlier_bound} ms | {card}")
+          f"{library_ms} ms, torch.mm against the dense "
+          f"{blk.n_pad}x{blk.n_pad} float32 weights {mm_ms} ms (both "
+          f"queued; currents equal); bound {delivery_bound} ms "
+          f"({delivery_bound_by}; {read_b + fixed_b} B, {adds} adds; "
+          f"{delivery_bound / delivery_ms} of it reached); every fired row "
+          f"of every active block ({every_b} B) bound {every_bound} ms "
+          f"({every_bound_by}) | {card}")
     full_step50 = fired.copy()
     del dense, csr, col, row, cur, arrived, ref_cur, ref_cnt, args
-    del plain_args, x
-    del blk, plane, outs
+    del plain_args, x, x1, plan, batch_plan, live_cur, live_arrived
+    del batch_cur, batch_arrived, blk, plane, live, outs
     torch.cuda.empty_cache()
 
     merge = merge_phases(st, compile_chip, full_compiled, mid_compiled, cuda,
@@ -3834,7 +3915,7 @@ def run(tmp: Path, through=None) -> int:
             "launches": scan_counts["delivery_kernel"],
             "max_abs_err": delivery_err,
             "ms": delivery_ms,
-            "plain_ms": delivery_plain_ms,
+            "plain_ms": live_plain_ms,
             "bound_ms": delivery_bound,
             "bound_by": delivery_bound_by,
             "library_ms": library_ms,

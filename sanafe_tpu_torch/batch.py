@@ -241,10 +241,14 @@ class ParameterSweep:
             else:
                 self.arrays[name] = values
         if prog.kernel_delivery:
-            # the rows the kernel reads: those with an edge in any sample;
-            # and the kernel's operands, checked once for every step
-            live = build_live_rows(self.arrays["block_weights"],
-                                   self.arrays["block_arrivals"])
+            # the rows the kernel reads: those with an edge in any sample
+            # (the program's own list where no sample overrides the
+            # blocks); and the kernel's operands, checked once for every step
+            if "block_weights" in swept or "block_counts" in swept:
+                live = build_live_rows(self.arrays["block_weights"],
+                                       self.arrays["block_arrivals"])
+            else:
+                live = prog.block.plan.live_rows
             self.arrays["block_live_rows"] = live
             blk = prog.block
             self.arrays["block_batch_plan"] = plan_delivery_batch(

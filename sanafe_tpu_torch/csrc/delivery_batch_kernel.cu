@@ -67,17 +67,26 @@
 // start, adding that sample's fired live rows in list order: blocks
 // ascending, rows ascending within a block. The skipped rows change no bit,
 // so this equals adding every fired row in that order, bit for bit for any
-// weights, and equals delivery_kernel and the plain version wherever the
+// weights. It is delivery_kernel's order, so a sample equals that kernel's
+// delivery of its plane bit for bit, and the plain version wherever the
 // partial sums are exact (integer weights). Two launches on the same inputs
-// give the same bits.
+// give the same bits. The mbarrier and cp.async helpers are shared with
+// delivery_kernel.cu (async_copy.cuh).
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "async_copy.cuh"
 #include "kernel_attrs.cuh"
 
 namespace {
+
+using sanafe::cp_async;
+using sanafe::cp_async_arrive;
+using sanafe::mbar_arrive;
+using sanafe::mbar_init;
+using sanafe::mbar_wait;
 
 constexpr int kWarp = 32;
 constexpr int kMaxTile = 256;
@@ -106,57 +115,6 @@ constexpr long long kMaxSmem = 227 * 1024;
 constexpr int kHeaderBytes =
     3 * kMaxStages * 8 + 2 * kMaxStages * 4 + kMaxStages * kRows * 4;
 constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async(void* dst, const void* src) {
-  if constexpr (N == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
-                     smem_addr(dst)),
-                 "l"(src)
-                 : "memory");
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;" ::"r"(
-                     smem_addr(dst)),
-                 "l"(src), "n"(N)
-                 : "memory");
-  }
-}
-
-// The mbarrier's pending count rises by one now and falls by one when every
-// cp.async this thread started so far has landed.
-__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];" ::"r"(
-                   smem_addr(bar))
-               : "memory");
-}
 
 // --- step 1: the sample masks ------------------------------------------------
 

@@ -1,391 +1,465 @@
-// Activity-gated block-dense spike delivery (Hopper, sm_90a).
+// Activity-gated block-dense spike delivery over the live-row list (Hopper,
+// sm_90a).
 //
 // Replaces sanafe_tpu/ops/pallas_delivery.py:_delivery_kernel, the Pallas TPU
 // kernel of the step scan's block delivery, together with the arrival test
 // sanafe_tpu/ops/step.py:_block_deliver runs beside it. The Python side
-// (sanafe_tpu_torch/ops/delivery.py) holds the plain PyTorch versions
-// (delivery_plain, fired_rows_plain) this file is checked against.
+// (sanafe_tpu_torch/ops/delivery.py) holds the plain PyTorch version
+// (delivery_live_plain) this file is checked against.
 //
 // Per timestep, for each destination tile d:
-//   cur[d]     = sum over blocks b of d whose source tile holds a fired neuron
-//                of x[src_tile(b)] @ W[b]
-//   arrived[d] = OR over the same blocks and their fired rows of the packed
-//                arrival plane A[b] (bit j%32 of word j/32 of row i is set
-//                where an edge joins row i to column j)
-// where x is the 0/1 fired vector cut into [n_tiles, tile], and the blocks are
-// sorted dest-major with dest_offsets[d]..dest_offsets[d+1] the blocks of d.
-// Destination tiles no active block reaches are zero.
+//   cur[d]     = sum over blocks b of d, over the rows i of b's source tile
+//                that fired, of W[b][i]
+//   arrived[d] = OR over the same rows of the packed arrival plane A[b][i]
+//                (bit j%32 of word j/32 of row i is set where an edge joins
+//                row i to column j)
+// with the blocks sorted dest-major. Destination tiles no fired row reaches
+// are zero.
 //
-// Bound: device-memory bandwidth. The lhs is 0/1, so a block's product is the
-// sum of its fired rows: no multiply, no tensor core, and the bytes read are
-// the fired rows of the active blocks and nothing else (3.71 GB of float32
-// weights and 0.12 GB of arrival bits for the 32k-neuron random chip when
-// every neuron fires). The design is built around keeping that read stream
-// full:
+// What bounds it: the bytes of the weight rows it must read. Of the
+// 3,626,496 block rows of the 32k-neuron random chip only 32,552 (0.90%)
+// hold an edge, and every other row adds +0.0. Each sum starts at +0.0, a
+// round-to-nearest sum is -0.0 only when both addends are, so no sum is
+// ever -0.0, and adding +-0.0 to it changes no bit. So a row whose weights
+// are all +-0.0 and whose arrival bits are all 0 is skipped, for any
+// weights, in both dtypes (a NaN or inf weight makes its row live). The
+// program builds each block's ascending list of live rows once
+// (ops/delivery.py: build_live_rows), and the wrapper's plan expands it,
+// once, into one (weight row, source neuron) pair an entry, in list order:
+// blocks ascending, rows ascending within a block; a destination tile's
+// entries are contiguous. What the kernel must read a step is then the
+// live rows that fired: 34 MB on that chip (0.01 ms at 3.35 TB/s) instead
+// of the 3.83 GB of every fired row.
 //
-// 1. compact_kernel, one CTA per source tile, writes each tile's ascending
-//    fired-row list and its length ONCE a step (warp ballots + a prefix over
-//    the warp counts). The main loop has no ballot and no barrier.
-// 2. delivery_kernel, one CTA of 8 warps per (destination tile, column
-//    slice). A slice is 1, 2 or 4 chunks of 16 bytes a lane: the widest that
-//    still gives 128 CTAs, so the 128 tiles of a 32k-neuron chip take whole
-//    rows (1 KB) and a chip of few tiles is cut into more CTAs. The CTA's work
-//    is the flattened list of (block, fired row) pairs of its tile, in sorted
-//    block order and ascending row order; empty source lists drop out of it.
-//    Warp g takes pairs g, g+8, g+16, ... A warp reads a row's slice at a time
-//    with cp.async into a warp-private ring of kStages stages of R rows in
-//    shared memory, and runs kStages-1 stages ahead of the adds ACROSS block
-//    boundaries, so the memory pipe never drains inside a CTA. Each lane
-//    consumes exactly the chunks it copied itself, so the ring needs no
-//    barrier at all, only cp.async.wait_group. A stage holds up to R of the
-//    warp's rows of ONE block: lanes 0..R-1 look the row indices up in one
-//    load and hand them round by shuffle, so a stage costs one list lookup,
-//    not R dependent ones; a stage's unused rows are zero-filled (src-size 0)
-//    and add nothing. The (source tile, list length) of the CTA's blocks are
-//    read into shared memory once, at the head of the kernel.
-//    In flight per SM: 8 warps x 3 stages x 4 KB = 96 KB, against the about
-//    20 KB an SM needs by Little's law (3.35 TB/s x ~0.8 us / 132 SMs).
-// 3. The arrival test reads one bit where the step needs one bit: lanes
-//    0..words-1 copy the row's packed words (32 bytes a 256-column row, not
-//    256) into the same stage and OR them.
+// One launch a step: one CTA per (destination tile, column slice), with
+// three kinds of warps, which hand a ring of stages (up to kRows rows each)
+// to each other on mbarriers, with no block barrier after the start.
 //
-// Order of the sums: each warp adds its pairs in ascending flattened order
-// into one accumulator per column, and the 8 warp partials are added in warp
-// order. The order is fixed (no atomics), so the result repeats bit for bit;
-// it equals the plain version exactly whenever the partial sums are exact
-// (integer weights), and agrees to rounding otherwise.
+// 1. Four producer warps walk the tile's entries, kRound a round, taking
+//    rounds in turn: a lane loads kPerLane entries (those of the warp's
+//    next round are in flight while a round is tested), then the fired
+//    value of each entry's source neuron, all before the first is used.
+//    The warp keeps the fired entries by ballot, then waits for its turn
+//    (the rounds before its own queued) to queue them in list order and
+//    list kRows of them at a time in a free slot of the ring
+//    (`described`); a slot is free once every adder warp added its rows
+//    (`empty`). So a stage holds fired rows only, and four rounds' loads
+//    are in flight at once: where few of many live rows fire (DVS-gesture's
+//    edges, 7% fired) the walk, not the copies, is the work. The fired
+//    test is the kernel's own, so the compaction kernel of the earlier
+//    design is gone.
+// 2. The copier warps copy each listed row's slice into the slot, a row a
+//    lane, in one 1-D bulk copy of the copy engine (cp.async.bulk), with
+//    its arrival words, and arrive on the stage's `full` mbarrier expecting
+//    the copies' bytes, which hold the phase open until they land: one
+//    instruction a row, where cp.async takes one a 16-byte chunk a lane.
+// 3. The adder warps: a thread owns one column of the slice (up to 8 warps
+//    for a row of 256); it adds the stage's rows in order, eight rows'
+//    shared-memory loads at a time, and ORs their arrival words.
+//
+// Few destination tiles (a 4,096-neuron chip has 16) would leave most SMs
+// idle, so a row is cut into column slices of whole arrival words, as many
+// as give kMinCtas CTAs; each slice walks the whole list and adds every
+// listed fired row, so slicing changes no sum. A CTA has its SM to itself
+// (its registers), and its ring holds at least two stages for every tile
+// the kernel takes (float64 rows of 256: three stages of 66,560 bytes);
+// sanafe_delivery_smem tells the wrapper, once, whether a shape fits.
+//
+// Order of the sums: one accumulator per column, +0.0 at the start, adding
+// the fired live rows in list order. The skipped rows change no bit, so
+// this equals adding every fired row in that order, bit for bit for any
+// weights; it is delivery_batch_kernel's order, so the two kernels agree bit
+// for bit at one sample, and both equal the plain version delivery_plain
+// wherever the partial sums are exact (integer weights). Two launches on the
+// same inputs give the same bits.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "async_copy.cuh"
 #include "kernel_attrs.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;     // warps per CTA of the main kernel
-constexpr int kStages = 4;    // ring depth per warp (3 stages in flight)
+using sanafe::bulk_copy;
+using sanafe::cp_async;
+using sanafe::cp_async_arrive;
+using sanafe::mbar_arrive;
+using sanafe::mbar_arrive_expect_tx;
+using sanafe::mbar_init;
+using sanafe::mbar_wait;
+
+constexpr int kWarp = 32;
 constexpr int kMaxTile = 256;
-constexpr size_t kMaxSmem = 227 * 1024;  // dynamic shared memory of a CTA
+constexpr int kRows = 32;      // rows a stage (at most kWarp)
+constexpr int kCopiers = 8;    // copier warps a CTA
+constexpr int kProducers = 4;  // producer warps, which take rounds in turn
+constexpr int kMaxAdders = 8;  // a row of 256: one column a thread
+constexpr int kBatchRows = 8;  // rows whose loads an adder starts together
+constexpr int kMaxStages = 8;  // ring depth
+constexpr int kPerLane = 8;    // list entries a producer lane takes a round
+constexpr int kRound = kWarp * kPerLane;
+constexpr int kQueue = 512;    // the producers' kept rows (> kRound + kRows)
 constexpr int kMinCtas = 128;  // cut rows into slices below this many CTAs
+constexpr long long kMaxSmem = 227 * 1024;  // dynamic shared memory of a CTA
+// the mbarriers (described, full, empty), the stages' row counts and
+// last-stage flags, their weight-row indices, the producers' queue and
+// their shared counters (rounds queued, the queue's head and tail, the
+// next stage)
+constexpr int kHeaderBytes = 3 * kMaxStages * 8 + 2 * kMaxStages * 4 +
+                             kMaxStages * kRows * 4 + kQueue * 4 + 16;
+constexpr int kThreads = (kMaxAdders + kCopiers + kProducers) * kWarp;
 constexpr unsigned kFull = 0xffffffffu;
 
-// --- phase 1: fired-row lists ------------------------------------------------
-
-template <typename T>
-__global__ void __launch_bounds__(kMaxTile)
-compact_kernel(const T* __restrict__ x, uint8_t* __restrict__ rows,
-               int* __restrict__ lens, int tile) {
-  __shared__ int s_warp[kMaxTile / 32];
-  const int s = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const bool fired = tid < tile && x[static_cast<size_t>(s) * tile + tid] != T(0);
-  const unsigned ballot = __ballot_sync(kFull, fired);
-  if (lane == 0) s_warp[warp] = __popc(ballot);
-  __syncthreads();
-  int base = 0, total = 0;
-#pragma unroll
-  for (int k = 0; k < kMaxTile / 32; ++k) {
-    const int c = s_warp[k];
-    base += k < warp ? c : 0;
-    total += c;
-  }
-  if (fired) {
-    rows[static_cast<size_t>(s) * tile + base +
-         __popc(ballot & ((1u << lane) - 1u))] = static_cast<uint8_t>(tid);
-  }
-  if (tid == 0) lens[s] = total;
+// A producer's turn is taken and handed on through one shared counter: an
+// acquiring load and a releasing store, no fence that would wait for the
+// warp's loads in flight.
+__device__ __forceinline__ int load_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.cta.shared::cta.b32 %0, [%1];"
+               : "=r"(v)
+               : "r"(sanafe::smem_addr(p))
+               : "memory");
+  return v;
 }
 
-// --- phase 2: the sums -------------------------------------------------------
-
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src, int n) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(n));
+__device__ __forceinline__ void store_release(int* p, int v) {
+  asm volatile("st.release.cta.shared::cta.b32 [%0], %1;" ::"r"(
+                   sanafe::smem_addr(p)),
+               "r"(v)
+               : "memory");
 }
 
-__device__ __forceinline__ void cp_async_4(void* dst, const void* src, int n) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// A warp's place in its CTA's flattened (block, fired row) list.
-struct Cursor {
-  int b, b_end;  // current block, end of the tile's blocks
-  int k, len;    // next row of the block's list this warp takes; list length
-  int s;         // the block's source tile
+// How one launch cuts the work (host and device agree through this).
+struct Plan {
+  int chunks;      // 16-byte chunks a row
+  int slice;       // chunks a CTA's column slice: `chunks` or a divisor
+  int slices;      // gridDim.y
+  int adders;      // adder warps: one thread a column of the slice
+  int row_words;   // arrival words a row
+  int arr_words;   // arrival words a slice
+  int stages;      // ring depth
+  long long smem;  // dynamic shared memory bytes; -1 if over the limit
 };
 
-// T: float or double. CPL: 16-byte chunks a lane copies per row, so a CTA's
-// column slice is CPL * 512 bytes of each row; blockIdx.y is the slice. R:
-// rows per stage.
-template <typename T, int CPL, int R>
-__global__ void __launch_bounds__(kWarps * 32)
-delivery_kernel(const T* __restrict__ w, const uint32_t* __restrict__ arrive,
-                const int* __restrict__ src_tiles,
-                const int* __restrict__ dest_offsets,
-                const uint8_t* __restrict__ rows, const int* __restrict__ lens,
-                T* __restrict__ out_cur, uint8_t* __restrict__ out_arrived,
-                int tile, int words, int blk_cap) {
-  constexpr int kVec = 16 / sizeof(T);           // elements per chunk
-  constexpr int kRowChunks = CPL * 32;           // ring row width in chunks
-  constexpr int kStageChunks = R * kRowChunks;
-  constexpr int kStageWords = R * (kMaxTile / 32);
-  extern __shared__ uint4 smem[];
-  // per warp: kStages stages of weights, then kStages stages of words
-  uint4* ring = smem + static_cast<size_t>(threadIdx.y) * kStages * kStageChunks;
-  uint32_t* ring_bits =
-      reinterpret_cast<uint32_t*>(smem + kWarps * kStages * kStageChunks) +
-      static_cast<size_t>(threadIdx.y) * kStages * kStageWords;
+// A CTA of 640 threads at about 64 registers a thread fills an SM's
+// register file, so a CTA has its SM to itself: the ring takes as much of
+// its shared memory as kMaxStages stages need.
+Plan make_plan(int n_tiles, int tile, int is_double) {
+  Plan p;
+  const int size = is_double ? 8 : 4;
+  const int vec = 16 / size;
+  p.chunks = tile * size / 16;
+  p.slice = p.chunks;
+  // halve the slice, keeping it whole arrival words, while there are fewer
+  // than kMinCtas CTAs
+  while (n_tiles * (p.chunks / p.slice) < kMinCtas && p.slice % 2 == 0 &&
+         (p.slice / 2) * vec % 32 == 0) {
+    p.slice /= 2;
+  }
+  p.slices = p.chunks / p.slice;
+  p.adders = (p.slice * vec + kWarp - 1) / kWarp;
+  p.row_words = (tile + 31) / 32;
+  p.arr_words = (p.slice * vec + 31) / 32;
+  const long long stage =
+      static_cast<long long>(kRows) * (16LL * p.slice + 4LL * p.arr_words);
+  const long long fit = (kMaxSmem - kHeaderBytes) / stage;
+  p.stages = static_cast<int>(fit < kMaxStages ? fit : kMaxStages);
+  p.smem = p.stages >= 2 ? kHeaderBytes + p.stages * stage : -1;
+  return p;
+}
+
+// T: float or double.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+live_kernel(const T* __restrict__ x, const T* __restrict__ w,
+            const uint32_t* __restrict__ arrive,
+            const int2* __restrict__ entries,
+            const int* __restrict__ tile_entries, T* __restrict__ out_cur,
+            uint8_t* __restrict__ out_arrived, int tile, Plan p) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int K = p.stages;
+  const int SC = p.slice;
+  const int AW = p.arr_words;
+  const int row_bytes = 16 * SC;  // a ring row: the slice's columns
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint64_t* described = reinterpret_cast<uint64_t*>(smem);  // rows listed
+  uint64_t* full = described + kMaxStages;  // the rows landed
+  uint64_t* empty = full + kMaxStages;      // the rows added
+  int* count_of = reinterpret_cast<int*>(empty + kMaxStages);
+  int* last_of = count_of + kMaxStages;
+  int* row_of = last_of + kMaxStages;  // [kMaxStages][kRows] weight rows
+  int* queue = row_of + kMaxStages * kRows;     // [kQueue] kept weight rows
+  // [4]: rounds queued, the queue's head and tail, the next stage
+  int* counters = queue + kQueue;
+  unsigned char* ring_w = smem + kHeaderBytes;  // [K][kRows][SC] chunks
+  uint32_t* ring_a = reinterpret_cast<uint32_t*>(
+      ring_w + static_cast<size_t>(K) * kRows * row_bytes);  // [K][kRows][AW]
 
   const int d = blockIdx.x;
-  const int lane = threadIdx.x;
-  const int g = threadIdx.y;
-  // this CTA's slice of a weight row, in 16-byte chunks, and of a row of
-  // arrival words
-  const int chunk0 = blockIdx.y * kRowChunks;
-  const int row_chunks = min(kRowChunks, tile / kVec - chunk0);
-  const int col0 = chunk0 * kVec;
-  const int word0 = col0 / 32;
-  words = min(words - word0, kRowChunks * kVec / 32);
-  const int row_words = (tile + 31) / 32;
-
-  // the blocks of this tile: source tile and fired-row count of each
-  const int b_begin = dest_offsets[d];
-  int* s_blk_src = reinterpret_cast<int*>(
-      reinterpret_cast<uint32_t*>(smem + kWarps * kStages * kStageChunks) +
-      kWarps * kStages * kStageWords);
-  int* s_blk_len = s_blk_src + blk_cap;
-  if (dest_offsets[d + 1] - b_begin > blk_cap) __trap();  // caller's bound
-  for (int i = g * 32 + lane; i < dest_offsets[d + 1] - b_begin;
-       i += kWarps * 32) {
-    const int s = src_tiles[b_begin + i];
-    s_blk_src[i] = s;
-    s_blk_len[i] = lens[s];
+  const int col0 = blockIdx.y * SC * kVec;  // the slice's first column
+  const int w0 = col0 >> 5;                 // and its first arrival word
+  const int tid = threadIdx.x;
+  const int lane = tid & (kWarp - 1);
+  const int warp = tid / kWarp;
+  if (tid == 0) {
+    for (int k = 0; k < K; ++k) {
+      mbar_init(&described[k], 1);  // the producer that lists it
+      // each copier warp, after its copies, which hold the phase open
+      // until they land
+      mbar_init(&full[k], kCopiers);
+      mbar_init(&empty[k], p.adders);  // each adder warp
+    }
+    for (int k = 0; k < 4; ++k) counters[k] = 0;
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  __syncthreads();
+  __syncthreads();  // the only block barrier
 
-  Cursor cur;
-  cur.b = b_begin;
-  cur.b_end = dest_offsets[d + 1];
-  cur.k = g;
-  cur.len = 0;
-  cur.s = 0;
-  if (cur.b < cur.b_end) {
-    cur.s = s_blk_src[0];
-    cur.len = s_blk_len[0];
-  }
+  if (warp >= p.adders + kCopiers) {
+    // --- the producer warps: which rows, in list order ---
+    // Producer q takes rounds q, q + kProducers, ...: it loads and tests a
+    // round while the others load and test theirs, then waits for its turn
+    // (`counters[0]`, the rounds queued so far) to queue the round's fired
+    // rows and list the full stages.
+    const int q = warp - (p.adders + kCopiers);
+    const int e_begin = tile_entries[d];
+    const int n_e = tile_entries[d + 1] - e_begin;
+    const int n_rounds = (n_e + kRound - 1) / kRound;
+    int head = 0, tail = 0;  // the queue's counters (the same in every lane)
+    int j = 0;               // the next stage
 
-  // Copy up to R of the warp's next rows (of one block) into ring stage
-  // `slot`; returns 1 if the stage holds a row. Always commits one group, so
-  // the group count is the same whether or not rows are left.
-  auto fill_stage = [&](int slot) -> int {
-    while (cur.b < cur.b_end && cur.k >= cur.len) {
-      cur.k -= cur.len;
-      if (++cur.b < cur.b_end) {
-        cur.s = s_blk_src[cur.b - b_begin];
-        cur.len = s_blk_len[cur.b - b_begin];
+    // Stage j: its `count` rows from the head of the queue into ring slot
+    // j % K, once the adders added the slot's last rows.
+    const auto emit = [&](int count, int last) {
+      const int slot = j % K;
+      if (j >= K) mbar_wait(&empty[slot], ((j / K) - 1) & 1);
+      if (lane < count) {
+        row_of[slot * kRows + lane] = queue[(head + lane) & (kQueue - 1)];
       }
-    }
-    if (cur.b >= cur.b_end) {
-      cp_async_commit();  // nothing left: an empty group
-      return 0;
-    }
-    // lane r < R looks up the r-th of the warp's next rows in this block
-    const int mine = cur.k + kWarps * lane;
-    const int looked = lane < R && mine < cur.len
-        ? rows[static_cast<size_t>(cur.s) * tile + mine] : 0;
-    const int n_rows = min(R, (cur.len - cur.k + kWarps - 1) / kWarps);
-    cur.k += kWarps * n_rows;
-    uint4* stage = ring + slot * kStageChunks;
-    uint32_t* bits = ring_bits + slot * kStageWords;
+      if (lane == 0) {
+        count_of[slot] = count;
+        last_of[slot] = last;
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&described[slot]);
+      head += count;
+      ++j;
+    };
+
+    // Entry r0 + k * kWarp + lane is lane's k-th of the round starting at
+    // r0: each load is one coalesced read of the warp.
+    int2 ent[kPerLane], next[kPerLane];
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const bool valid = r < n_rows;
-      const size_t row = static_cast<size_t>(cur.b) * tile +
-                         __shfl_sync(kFull, looked, r);
-      const uint4* src =
-          reinterpret_cast<const uint4*>(w + row * tile + col0);
-      const int n16 = valid ? 16 : 0;  // 0: zero-fill, nothing is read
+    for (int k = 0; k < kPerLane; ++k) {
+      const int e = q * kRound + k * kWarp + lane;
+      ent[k] = e < n_e ? __ldg(entries + e_begin + e) : make_int2(-1, -1);
+    }
+    for (int r = q; r < n_rounds; r += kProducers) {
+      // the warp's next round's entries, in flight while this round is
+      // tested and queued
 #pragma unroll
-      for (int c = 0; c < CPL; ++c) {
-        const int chunk = lane + 32 * c;
-        if (chunk < row_chunks) {
-          cp_async_16(stage + r * kRowChunks + chunk, src + chunk, n16);
+      for (int k = 0; k < kPerLane; ++k) {
+        const int e = (r + kProducers) * kRound + k * kWarp + lane;
+        next[k] = e < n_e ? __ldg(entries + e_begin + e) : make_int2(-1, -1);
+      }
+      bool fired[kPerLane];
+      int wrow[kPerLane];
+#pragma unroll
+      for (int k = 0; k < kPerLane; ++k) {
+        fired[k] = ent[k].y >= 0 && __ldg(x + ent[k].y) != T(0);
+        wrow[k] = ent[k].x;
+      }
+      // each fired entry's place among the round's fired ones, in list
+      // order, before the turn: the turn itself only stores them
+      int before[kPerLane];
+      int n_kept = 0;
+#pragma unroll
+      for (int k = 0; k < kPerLane; ++k) {
+        const unsigned kept = __ballot_sync(kFull, fired[k]);
+        before[k] = n_kept + __popc(kept & ((1u << lane) - 1u));
+        n_kept += __popc(kept);
+      }
+      // this warp's turn: the rounds before r are queued
+      while (load_acquire(&counters[0]) != r) __nanosleep(20);
+      head = counters[1];
+      tail = counters[2];
+      j = counters[3];
+#pragma unroll
+      for (int k = 0; k < kPerLane; ++k) {
+        if (fired[k]) queue[(tail + before[k]) & (kQueue - 1)] = wrow[k];
+      }
+      tail += n_kept;
+      __syncwarp();
+      while (tail - head >= kRows) emit(kRows, 0);
+      if (r == n_rounds - 1) emit(tail - head, 1);  // the rest, and the end
+      __syncwarp();
+      if (lane == 0) {
+        counters[1] = head;
+        counters[2] = tail;
+        counters[3] = j;
+        store_release(&counters[0], r + 1);  // the next round's turn
+      }
+#pragma unroll
+      for (int k = 0; k < kPerLane; ++k) ent[k] = next[k];
+    }
+    if (n_rounds == 0 && q == 0) emit(0, 1);  // no entry: the end alone
+    return;
+  }
+
+  if (warp >= p.adders) {
+    // --- the copier warps: stage j's rows, once a producer listed them ---
+    // Lane l of warp w copies row w + kCopiers * l: its slice in one bulk
+    // copy, and its arrival words in bulk too where they are a multiple of
+    // 16 bytes (tiles of 128 and more), else a word a cp.async.
+    const int cw = warp - p.adders;
+    const bool bulk_words = (4 * AW) % 16 == 0;
+    const uint32_t row_tx = row_bytes + (bulk_words ? 4 * AW : 0);
+    for (int j = 0;; ++j) {
+      const int slot = j % K;
+      mbar_wait(&described[slot], (j / K) & 1);
+      const int count = count_of[slot];
+      const int last = last_of[slot];
+      const int mine = count > cw ? (count - cw + kCopiers - 1) / kCopiers : 0;
+      const int r = cw + kCopiers * lane;
+      const bool copies = lane < mine;
+      const size_t wrow =
+          copies ? static_cast<size_t>(row_of[slot * kRows + r]) : 0;
+      unsigned char* dst = ring_w + static_cast<size_t>(slot * kRows + r) *
+                                        row_bytes;
+      uint32_t* a_dst = ring_a + static_cast<size_t>(slot * kRows + r) * AW;
+      const uint32_t* a_src = arrive + wrow * p.row_words + w0;
+      if (!bulk_words) {
+        if (copies) {
+          for (int k = 0; k < AW; ++k) cp_async<4>(a_dst + k, a_src + k);
+        }
+        // counted on `full` before the warp's arrival below
+        cp_async_arrive(&full[slot]);
+      }
+      __syncwarp();
+      // the warp's arrival, with the bytes its bulk copies will bring
+      if (lane == 0) mbar_arrive_expect_tx(&full[slot], mine * row_tx);
+      __syncwarp();
+      if (copies) {
+        bulk_copy(dst, w + wrow * tile + col0, row_bytes, &full[slot]);
+        if (bulk_words) bulk_copy(a_dst, a_src, 4 * AW, &full[slot]);
+      }
+      if (last) return;
+    }
+  }
+
+  // --- the adder warps: thread c adds column c of the slice ---
+  const int c = tid;
+  const int cols = SC * kVec;  // the slice's columns, a ring row's values
+  const bool mine = c < cols;
+  const int col = col0 + c;
+  const int a_word = (col >> 5) - w0;
+  T acc = T(0);
+  uint32_t seen = 0u;  // bit col % 32: column col had an arrival
+  for (int j = 0;; ++j) {
+    const int slot = j % K;
+    mbar_wait(&full[slot], (j / K) & 1);
+    const int last = last_of[slot];
+    if (mine) {
+      const int count = count_of[slot];
+      const T* rows = reinterpret_cast<const T*>(
+                          ring_w + static_cast<size_t>(slot) * kRows *
+                                       row_bytes) + c;
+      const uint32_t* bits =
+          ring_a + static_cast<size_t>(slot) * kRows * AW + a_word;
+#pragma unroll 1
+      for (int r0 = 0; r0 < count; r0 += kBatchRows) {
+        T v[kBatchRows];
+        uint32_t b[kBatchRows];
+#pragma unroll
+        for (int q = 0; q < kBatchRows; ++q) {
+          // rows past the count hold stale values: loaded, not added
+          v[q] = rows[(r0 + q) * cols];
+          b[q] = bits[(r0 + q) * AW];
+        }
+#pragma unroll
+        for (int q = 0; q < kBatchRows; ++q) {
+          if (r0 + q < count) {  // in order: the rows of the list
+            acc = acc + v[q];
+            seen |= b[q];
+          }
         }
       }
-      if (lane < words) {
-        cp_async_4(bits + r * (kMaxTile / 32) + lane,
-                   arrive + row * row_words + word0 + lane, valid ? 4 : 0);
-      }
     }
-    cp_async_commit();
-    return 1;
-  };
-
-  T acc[CPL][kVec];
-#pragma unroll
-  for (int c = 0; c < CPL; ++c) {
-#pragma unroll
-    for (int e = 0; e < kVec; ++e) acc[c][e] = T(0);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[slot]);
+    if (last) break;
   }
-  uint32_t seen = 0;  // lane < words: OR of the arrival words of its rows
-
-  int n_live = 0;
-#pragma unroll
-  for (int p = 0; p < kStages - 1; ++p) n_live += fill_stage(p);
-  for (int i = 0; i < n_live; ++i) {
-    cp_async_wait<kStages - 2>();  // this lane's copies of stage i landed
-    const int slot = i % kStages;
-    const uint4* stage = ring + slot * kStageChunks;
-    const uint32_t* bits = ring_bits + slot * kStageWords;
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-#pragma unroll
-      for (int c = 0; c < CPL; ++c) {
-        const int chunk = lane + 32 * c;
-        if (chunk < row_chunks) {
-          const uint4 raw = stage[r * kRowChunks + chunk];
-          const T* v = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-          for (int e = 0; e < kVec; ++e) acc[c][e] = acc[c][e] + v[e];
-        }
-      }
-      if (lane < words) seen |= bits[r * (kMaxTile / 32) + lane];
-    }
-    // refill the slot consumed one iteration ago
-    n_live += fill_stage((i + kStages - 1) % kStages);
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // every warp is done with its ring: reuse it
-
-  // --- add the warp partials in warp order ---
-  T* part = reinterpret_cast<T*>(smem);  // [kWarps][slice columns]
-  uint32_t* part_bits = reinterpret_cast<uint32_t*>(part + kWarps * kMaxTile);
-#pragma unroll
-  for (int c = 0; c < CPL; ++c) {
-    const int chunk = lane + 32 * c;
-    if (chunk < row_chunks) {
-#pragma unroll
-      for (int e = 0; e < kVec; ++e) {
-        part[g * (kRowChunks * kVec) + chunk * kVec + e] = acc[c][e];
-      }
-    }
-  }
-  if (lane < words) part_bits[g * (kMaxTile / 32) + lane] = seen;
-  __syncthreads();
-  const int tid = g * 32 + lane;
-  if (tid < row_chunks * kVec) {
-    T sum = part[tid];
-    // a slice narrower than a word (tile 8 or 16) starts at bit 0 of word 0
-    uint32_t any = part_bits[tid >> 5];
-#pragma unroll
-    for (int k = 1; k < kWarps; ++k) {
-      sum = sum + part[k * (kRowChunks * kVec) + tid];
-      any |= part_bits[k * (kMaxTile / 32) + (tid >> 5)];
-    }
-    out_cur[static_cast<size_t>(d) * tile + col0 + tid] = sum;
-    out_arrived[static_cast<size_t>(d) * tile + col0 + tid] =
-        (any >> (tid & 31)) & 1u;
+  if (mine) {
+    const size_t o = static_cast<size_t>(d) * tile + col;
+    out_cur[o] = acc;
+    out_arrived[o] = static_cast<uint8_t>((seen >> (col & 31)) & 1u);
   }
 }
 
-template <typename T, int CPL, int R>
-cudaError_t launch_main(const void* w, const void* arrive, const void* src_tiles,
-                        const void* dest_offsets, const void* rows,
-                        const void* lens, void* out_cur, void* out_arrived,
-                        int n_tiles, int tile, int words, int blk_cap,
-                        cudaStream_t stream) {
-  // the rings, then the (source tile, length) of at most blk_cap blocks
-  const size_t ring = static_cast<size_t>(kWarps) * kStages *
-                          (R * CPL * 32 * 16 + R * (kMaxTile / 32) * 4) +
-                      2 * sizeof(int) * static_cast<size_t>(blk_cap);
-  if (ring > kMaxSmem) return cudaErrorInvalidValue;
-  const size_t tail = static_cast<size_t>(kWarps) * kMaxTile * sizeof(T) +
-                      kWarps * (kMaxTile / 32) * 4;
-  const size_t smem = ring > tail ? ring : tail;
-  const cudaError_t err = sanafe::reserve_smem(
-      reinterpret_cast<const void*>(&delivery_kernel<T, CPL, R>), smem);
-  if (err != cudaSuccess) return err;
-  const int slice = CPL * 32 * (16 / static_cast<int>(sizeof(T)));  // columns
-  const dim3 grid(n_tiles, (tile + slice - 1) / slice);
-  delivery_kernel<T, CPL, R><<<grid, dim3(32, kWarps), smem, stream>>>(
-      static_cast<const T*>(w), static_cast<const uint32_t*>(arrive),
-      static_cast<const int*>(src_tiles), static_cast<const int*>(dest_offsets),
-      static_cast<const uint8_t*>(rows), static_cast<const int*>(lens),
-      static_cast<T*>(out_cur), static_cast<uint8_t*>(out_arrived), tile, words,
-      blk_cap);
-  return cudaGetLastError();
+bool valid_shape(int n_tiles, int tile) {
+  return n_tiles > 0 && tile > 0 && tile <= kMaxTile && tile % 4 == 0;
 }
 
 template <typename T>
 cudaError_t launch(const void* x, const void* w, const void* arrive,
-                   const void* src_tiles, const void* dest_offsets, void* rows,
-                   void* lens, void* out_cur, void* out_arrived, int n_tiles,
-                   int tile, int blk_cap, cudaStream_t stream) {
-  compact_kernel<T><<<n_tiles, kMaxTile, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<uint8_t*>(rows),
-      static_cast<int*>(lens), tile);
-  cudaError_t err = cudaGetLastError();
+                   const void* entries, const void* tile_entries,
+                   void* out_cur, void* out_arrived, int n_tiles, int tile,
+                   cudaStream_t stream) {
+  const Plan p = make_plan(n_tiles, tile, sizeof(T) == 8);
+  if (p.smem < 0 || p.adders > kMaxAdders) return cudaErrorInvalidValue;
+  const cudaError_t err = sanafe::reserve_smem(
+      reinterpret_cast<const void*>(&live_kernel<T>),
+      static_cast<size_t>(p.smem));
   if (err != cudaSuccess) return err;
-  const int words = (tile + 31) / 32;
-  const int row_bytes = tile * static_cast<int>(sizeof(T));
-  // the widest slice (fewest CTAs a tile) that still gives kMinCtas CTAs
-  const auto enough = [&](int slice_bytes) {
-    return n_tiles * ((row_bytes + slice_bytes - 1) / slice_bytes) >= kMinCtas;
-  };
-#define SANAFE_MAIN(CPL, R)                                                   \
-  launch_main<T, CPL, R>(w, arrive, src_tiles, dest_offsets, rows, lens,      \
-                         out_cur, out_arrived, n_tiles, tile, words, blk_cap,   \
-                         stream)
-  if (row_bytes <= 512 || !enough(1024)) return SANAFE_MAIN(1, 4);
-  if (row_bytes <= 1024 || !enough(2048)) return SANAFE_MAIN(2, 4);
-  return SANAFE_MAIN(4, 2);
-#undef SANAFE_MAIN
+  const dim3 grid(n_tiles, p.slices);
+  live_kernel<T><<<grid, (p.adders + kCopiers + kProducers) * kWarp, p.smem,
+                   stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w),
+      static_cast<const uint32_t*>(arrive), static_cast<const int2*>(entries),
+      static_cast<const int*>(tile_entries), static_cast<T*>(out_cur),
+      static_cast<uint8_t*>(out_arrived), tile, p);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// One delivery on `stream`, float (is_double = 0) or double: the compaction
-// kernel, then the main kernel. `rows` ([n_tiles, tile] bytes) and `lens`
-// ([n_tiles] int32) are scratch the caller allocates. `tile` must be a
-// multiple of 4 (rows are read 16 bytes at a time); `blk_cap` is the largest
-// number of blocks of one destination tile. Returns the CUDA error (0 on
-// success).
+// The dynamic shared memory one launch of `n_tiles` tiles of `tile` takes,
+// or -1 where the shape does not fit (or is not one the kernel takes): the
+// wrapper asks once, when a program is built.
+long long sanafe_delivery_smem(int n_tiles, int tile, int is_double) {
+  if (!valid_shape(n_tiles, tile)) return -1;
+  const Plan p = make_plan(n_tiles, tile, is_double);
+  return p.adders > kMaxAdders ? -1 : p.smem;
+}
+
+// One delivery on `stream`, float (is_double = 0) or double, in one launch.
+// x [n_tiles, tile] is the fired plane; `entries` (int32 pairs) are the
+// live rows in list order, each as (weight row b * tile + i, source neuron
+// src_tile(b) * tile + i); destination tile d's entries are
+// entries[tile_entries[d] .. tile_entries[d + 1]]. `out_arrived` is
+// [n_tiles, tile] bytes. Every pointer is 16-byte aligned, `tile` a
+// multiple of 4 up to 256. Returns the CUDA error (0 on success).
 int sanafe_delivery_launch(const void* x, const void* weights,
-                           const void* arrive, const void* src_tiles,
-                           const void* dest_offsets, void* rows, void* lens,
-                           void* out_cur, void* out_arrived, int n_tiles,
-                           int tile, int blk_cap, int is_double, int device,
-                           void* stream) {
-  if (n_tiles <= 0 || tile <= 0 || tile > kMaxTile || tile % 4 != 0 ||
-      blk_cap < 0 || device < 0) {
+                           const void* arrive, const void* entries,
+                           const void* tile_entries, void* out_cur,
+                           void* out_arrived, int n_tiles, int tile,
+                           int is_double, int device, void* stream) {
+  if (!valid_shape(n_tiles, tile) || device < 0) {
     return cudaErrorInvalidValue;
   }
-  cudaError_t err = cudaSetDevice(device);
+  const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_double) {
-    return launch<double>(x, weights, arrive, src_tiles, dest_offsets, rows,
-                          lens, out_cur, out_arrived, n_tiles, tile, blk_cap, s);
+    return launch<double>(x, weights, arrive, entries, tile_entries, out_cur,
+                          out_arrived, n_tiles, tile, s);
   }
-  return launch<float>(x, weights, arrive, src_tiles, dest_offsets, rows, lens,
-                       out_cur, out_arrived, n_tiles, tile, blk_cap, s);
+  return launch<float>(x, weights, arrive, entries, tile_entries, out_cur,
+                       out_arrived, n_tiles, tile, s);
 }
 
 const char* sanafe_delivery_error_string(int err) {

@@ -11,20 +11,23 @@ any of the tile's blocks holds an edge into the column.
 ``delivery_plain`` is the einsum + sorted segment sum and the int8 count
 product of sanafe_tpu (``ops/step.py:1580-1608``) in PyTorch, for any
 device; its ``cnt > 0`` is the arrival condition. ``delivery_kernel`` is the
-wrapper of ``csrc/delivery_kernel.cu``. The kernel reads one bit where the
-step needs one bit: instead of the int8 counts it takes the packed arrival
-plane ``pack_arrival_plane(counts)`` (``counts > 0``, 32 columns a word) and
-ORs it over the fired rows. It first compacts each source tile's fired rows
-into an ascending list, once a step (``fired_rows_plain`` is that phase's
-plain version). On CPU tensors the wrapper takes the plain versions.
+wrapper of ``csrc/delivery_kernel.cu``. The kernel reads only the live rows
+(``build_live_rows``: a row with a weight that is not +-0.0 or an arrival
+bit; every other row would add +0.0, which changes no bit of a sum from
++0.0) that fired, and one bit a cell where the step needs one bit: instead
+of the int8 counts it takes the packed arrival plane
+``pack_arrival_plane(counts)`` (``counts > 0``, 32 columns a word) and ORs
+it over those rows. Each column adds the fired live rows in list order
+(blocks ascending, rows ascending within a block) from +0.0;
+``delivery_live_plain`` is that sum in PyTorch, the wrapper's path for CPU
+tensors. A program checks the operands once (``plan_delivery``) and each
+step launches (``delivery_launch``).
 
 ``delivery_batch_kernel`` (``csrc/delivery_batch_kernel.cu``) is the same
 delivery for B fired vectors at once, the sample axis of ``ParameterSweep``
 (sanafe_tpu's ``jax.vmap`` of the Pallas kernel): each live weight row
-(``build_live_rows``: a row with a non-zero weight or an arrival bit)
 fired in any sample is read once and added into every sample that fired
-it; the other rows would add +0.0 and are not read. Its plain version is
-``delivery_batch_plain``.
+it, in the same order. Its plain version is ``delivery_batch_plain``.
 """
 
 from __future__ import annotations
@@ -36,8 +39,8 @@ import torch
 
 from .cuda_build import DELIVERY, DELIVERY_BATCH, load
 
-# a tile is at most this many neurons (the kernel's fired-row lists hold row
-# indices as bytes), and a multiple of 4 (rows are read 16 bytes at a time)
+# a tile is at most this many neurons (the live-row lists hold row indices
+# as bytes), and a multiple of 4 (rows are read 16 bytes at a time)
 MAX_TILE = 256
 
 
@@ -128,118 +131,17 @@ def unpack_arrival_plane(arrivals: torch.Tensor, tile: int) -> torch.Tensor:
     return bits.view(arrivals.shape[0], arrivals.shape[1], -1)[:, :, :tile] > 0
 
 
-def fired_rows_plain(fired_tiles: torch.Tensor):
-    """Plain version of the kernel's compaction phase: for each source
-    tile the ascending list of its fired rows. Returns (rows [n_tiles, tile]
-    uint8, the first ``lens[s]`` entries of row ``s`` valid and the rest 0,
-    and lens [n_tiles] int32)."""
-    fired = fired_tiles != 0
-    tile = fired.shape[1]
-    # a stable sort of "not fired" puts the fired rows first, in order
-    order = torch.sort((~fired).to(torch.uint8), dim=1, stable=True).indices
-    lens = fired.sum(dim=1).to(torch.int32)
-    keep = torch.arange(tile, device=fired.device)[None, :] < lens[:, None]
-    return torch.where(keep, order, 0).to(torch.uint8), lens
-
-
 def delivery_packed_plain(fired_tiles, weights, arrivals, src_tiles,
                           dest_offsets, max_blocks_per_dest: int):
-    """Plain version of ``delivery_kernel`` on its own arguments:
-    ``delivery_plain`` over the unpacked arrival plane. Returns (currents,
+    """``delivery_plain`` over the unpacked arrival plane, on
+    ``delivery_kernel``'s arguments but the live-row list: every block
+    multiplied, the semantics the list is held to. Returns (currents,
     arrived bool [n_tiles, tile])."""
     counts = unpack_arrival_plane(arrivals, fired_tiles.shape[1]).to(
         torch.int8)
     cur, cnt = delivery_plain(fired_tiles, weights, counts, src_tiles,
                               dest_offsets, max_blocks_per_dest)
     return cur, cnt > 0
-
-
-@functools.cache
-def _library():
-    import ctypes
-
-    lib = load(DELIVERY)
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.sanafe_delivery_launch.restype = i32
-    lib.sanafe_delivery_launch.argtypes = [vp] * 9 + [i32] * 5 + [vp]
-    lib.sanafe_delivery_error_string.restype = ctypes.c_char_p
-    lib.sanafe_delivery_error_string.argtypes = [i32]
-    return lib
-
-
-def delivery_kernel(fired_tiles, weights, arrivals, src_tiles, dest_offsets,
-                    max_blocks_per_dest: int):
-    """One delivery: the CUDA kernels (compaction, then the sums) for CUDA
-    tensors, ``delivery_packed_plain`` for CPU tensors.
-
-    ``fired_tiles`` [n_tiles, tile] 0/1 in the program dtype, ``weights``
-    [B, tile, tile] in the same dtype, ``arrivals`` [B, tile, ceil(tile/32)]
-    int32 (``pack_arrival_plane``), ``src_tiles`` [B] int32,
-    ``dest_offsets`` [n_tiles + 1] int32. Returns (currents [n_tiles, tile]
-    in the program dtype, arrived [n_tiles, tile] bool), equal to
-    ``delivery_plain``'s currents and ``cnt > 0``.
-
-    The kernel runs float32 and float64, launches on the current stream and
-    does not synchronise. ``delivery_kernel.launches`` counts its
-    launches."""
-    dev = fired_tiles.device
-    if dev.type == "cpu":
-        return delivery_packed_plain(fired_tiles, weights, arrivals,
-                                     src_tiles, dest_offsets,
-                                     max_blocks_per_dest)
-    if dev.type != "cuda":
-        raise ValueError(f"delivery_kernel: unsupported device {dev}")
-    dtype = fired_tiles.dtype
-    if dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"delivery_kernel: unsupported dtype {dtype}")
-    if fired_tiles.dim() != 2:
-        raise ValueError("delivery_kernel: fired_tiles must be [n_tiles, tile]")
-    n_tiles, tile = fired_tiles.shape
-    n_blocks = weights.shape[0]
-    if not 0 < tile <= MAX_TILE or tile % 4:
-        raise ValueError(f"delivery_kernel: tile {tile} is not a multiple "
-                         f"of 4 up to {MAX_TILE}")
-    expect = (
-        ("fired_tiles", fired_tiles, (n_tiles, tile), dtype),
-        ("weights", weights, (n_blocks, tile, tile), dtype),
-        ("arrivals", arrivals, (n_blocks, tile, -(-tile // 32)), torch.int32),
-        ("src_tiles", src_tiles, (n_blocks,), torch.int32),
-        ("dest_offsets", dest_offsets, (n_tiles + 1,), torch.int32),
-    )
-    pointers = []
-    for name, x, shape, dt in expect:
-        ptr = x.data_ptr()
-        if (x.device != dev or x.shape != shape or x.dtype != dt
-                or not x.is_contiguous() or ptr % 16):
-            raise ValueError(
-                f"delivery_kernel: {name} must be a contiguous, 16-byte "
-                f"aligned {dt} tensor of shape {shape} on {dev}; got "
-                f"{x.dtype} {tuple(x.shape)} on {x.device}"
-            )
-        pointers.append(ptr)
-    out_cur = torch.empty((n_tiles, tile), dtype=dtype, device=dev)
-    # one allocation: the arrived plane, then the kernel's scratch (the
-    # fired-row lists, a byte a row, and their int32 lengths)
-    n = n_tiles * tile
-    scratch = torch.empty(2 * n + 4 * n_tiles, dtype=torch.uint8, device=dev)
-    base = scratch.data_ptr()
-    lib = _library()
-    err = lib.sanafe_delivery_launch(
-        *pointers, base + n, base + 2 * n, out_cur.data_ptr(), base,
-        n_tiles, tile, int(max_blocks_per_dest),
-        int(dtype == torch.float64),
-        dev.index or 0, torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if err:
-        raise RuntimeError(
-            "delivery kernel launch failed: "
-            + lib.sanafe_delivery_error_string(err).decode()
-        )
-    delivery_kernel.launches += 1
-    return out_cur, scratch[:n].view(torch.bool).view(n_tiles, tile)
-
-
-delivery_kernel.launches = 0
 
 
 class LiveRows(NamedTuple):
@@ -292,6 +194,265 @@ def every_row_live(n_blocks: int, tile: int, device) -> LiveRows:
     connectivity gives)."""
     return _live_rows_of(torch.ones((n_blocks, tile), dtype=torch.bool,
                                     device=device))
+
+
+def live_entries(live_rows: LiveRows, src_tiles, dest_offsets, tile: int):
+    """The list as the kernel walks it, in list order (blocks ascending,
+    rows ascending within a block): int32 ``[count, 2]`` pairs (weight row
+    ``b * tile + i``, source neuron ``src_tiles[b] * tile + i``) of live
+    row ``i`` of block ``b``, and each destination tile's first entry,
+    int32 ``[n_tiles + 1]`` (the blocks are sorted dest-major, so a tile's
+    entries are contiguous). Built once a program, on the list's device."""
+    offsets = live_rows.offsets.long()
+    n_blocks = offsets.numel() - 1
+    count = live_rows.count
+    if n_blocks < 0 or int(offsets[-1]) != count:
+        raise ValueError(f"delivery_kernel: live_rows lists {count} rows, "
+                         f"its offsets end at {offsets[-1:].tolist()}")
+    block = torch.repeat_interleave(
+        torch.arange(n_blocks, device=offsets.device), offsets.diff(),
+        output_size=count)
+    row = live_rows.rows[:count].long()
+    entries = torch.stack(
+        [block * tile + row, src_tiles.long()[block] * tile + row],
+        dim=1).to(torch.int32)
+    return entries, offsets[dest_offsets.long()].to(torch.int32)
+
+
+def _live_sum(fired_tiles, weights, arrivals, entries, tile_entries):
+    """``delivery_live_plain`` on the list's entries (``live_entries``)."""
+    n_tiles, tile = fired_tiles.shape
+    wrow = entries[:, 0].long()
+    src = entries[:, 1].long()
+    keep = torch.nonzero(fired_tiles.reshape(-1)[src] != 0).flatten()
+    kept = wrow[keep]  # ascending: list order
+    # the destination tile of each kept entry
+    dest = torch.searchsorted(tile_entries[1:].long(), keep, right=True)
+    per_tile = torch.bincount(dest, minlength=n_tiles)
+    offsets = torch.zeros(n_tiles + 1, dtype=torch.int64,
+                          device=fired_tiles.device)
+    offsets[1:] = torch.cumsum(per_tile, dim=0)
+    cur = sorted_segment_sum(weights.reshape(-1, tile)[kept], offsets,
+                             int(per_tile.max()) if kept.numel() else 0)
+    words = arrivals.shape[-1]
+    shifts = torch.arange(32, dtype=torch.int32, device=arrivals.device)
+    bits = ((arrivals.reshape(-1, words)[kept].unsqueeze(2) >> shifts) & 1
+            ).reshape(kept.numel(), 32 * words)[:, :tile]
+    seen = torch.zeros((n_tiles, tile), dtype=torch.int32,
+                       device=fired_tiles.device)
+    seen.index_add_(0, dest, bits.to(torch.int32))
+    return cur, seen > 0
+
+
+def delivery_live_plain(fired_tiles, weights, arrivals, src_tiles,
+                        dest_offsets, max_blocks_per_dest: int,
+                        live_rows: LiveRows):
+    """Plain version of ``delivery_kernel``, in its order: for each
+    destination tile, one accumulator per column from +0.0, adding the
+    listed rows that fired in list order (blocks ascending, rows ascending
+    within a block), and the OR of their arrival bits. Arguments and
+    results as ``delivery_kernel``'s. A row left out of the list holds only
+    +-0.0 weights and no arrival bit and changes no bit of such a sum, so
+    this equals adding every fired row in that order, for any weights, and
+    equals ``delivery_packed_plain`` wherever the partial sums are exact
+    (integer weights)."""
+    del max_blocks_per_dest
+    return _live_sum(fired_tiles, weights, arrivals,
+                     *live_entries(live_rows, src_tiles, dest_offsets,
+                                   fired_tiles.shape[1]))
+
+
+@functools.cache
+def _library():
+    import ctypes
+
+    lib = load(DELIVERY)
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.sanafe_delivery_launch.restype = i32
+    lib.sanafe_delivery_launch.argtypes = [vp] * 7 + [i32] * 4 + [vp]
+    lib.sanafe_delivery_smem.restype = ctypes.c_longlong
+    lib.sanafe_delivery_smem.argtypes = [i32] * 3
+    lib.sanafe_delivery_error_string.restype = ctypes.c_char_p
+    lib.sanafe_delivery_error_string.argtypes = [i32]
+    return lib
+
+
+class Delivery(NamedTuple):
+    """``delivery_kernel``'s operands but the fired plane, checked once
+    (``plan_delivery``): a launch (``delivery_launch``) then checks only its
+    plane. ``entries`` and ``tile_entries`` are the list as the kernel
+    walks it (``live_entries``); ``launch`` holds the library's arguments
+    after the plane's pointer (None for CPU tensors, which take the plain
+    version)."""
+
+    weights: torch.Tensor
+    arrivals: torch.Tensor
+    src_tiles: torch.Tensor
+    dest_offsets: torch.Tensor
+    max_blocks_per_dest: int
+    live_rows: LiveRows
+    entries: torch.Tensor
+    tile_entries: torch.Tensor
+    shape: tuple  # the plane's (n_tiles, tile)
+    launch: Optional[tuple]
+
+    @property
+    def args(self) -> tuple:
+        """``delivery_kernel``'s arguments after the fired plane."""
+        return (self.weights, self.arrivals, self.src_tiles,
+                self.dest_offsets, self.max_blocks_per_dest, self.live_rows)
+
+
+def plan_delivery(weights, arrivals, src_tiles, dest_offsets,
+                  max_blocks_per_dest: int, live_rows: LiveRows) -> Delivery:
+    """Check ``delivery_kernel``'s operands but the fired plane (arguments
+    as its own), ask the library whether the shape fits a CTA's shared
+    memory, and expand the list into the entries the kernel walks, once: a
+    kernel-delivery program builds its plan with the program, so a shape
+    the kernel refuses raises there, and a step's launch pays none of it
+    and stays capturable."""
+    n_tiles = dest_offsets.shape[0] - 1
+    n_blocks, tile = weights.shape[0], weights.shape[1]
+    plan = dict(weights=weights, arrivals=arrivals, src_tiles=src_tiles,
+                dest_offsets=dest_offsets,
+                max_blocks_per_dest=int(max_blocks_per_dest),
+                live_rows=live_rows, shape=(n_tiles, tile), launch=None)
+    dev = weights.device
+    if dev.type == "cpu":  # the plain version's operands, unchecked
+        entries, tile_entries = live_entries(live_rows, src_tiles,
+                                             dest_offsets, tile)
+        return Delivery(**plan, entries=entries, tile_entries=tile_entries)
+    if dev.type != "cuda":
+        raise ValueError(f"delivery_kernel: unsupported device {dev}")
+    dtype = weights.dtype
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"delivery_kernel: unsupported dtype {dtype}")
+    if not 0 < tile <= MAX_TILE or tile % 4:
+        raise ValueError(f"delivery_kernel: tile {tile} is not a multiple "
+                         f"of 4 up to {MAX_TILE}")
+    if n_blocks * tile >= 2**31:
+        raise ValueError("delivery_kernel: the kernel indexes weight rows "
+                         "with int32; 2**31 or more rows")
+    if not isinstance(live_rows, LiveRows):
+        raise ValueError("delivery_kernel: live_rows must be a LiveRows "
+                         "(build_live_rows)")
+    n_live = live_rows.rows.numel()
+    if n_live % 16 or not 0 <= live_rows.count <= min(n_live,
+                                                      n_blocks * tile):
+        raise ValueError(
+            f"delivery_kernel: live_rows lists {live_rows.count} rows in "
+            f"{n_live} bytes for {n_blocks} blocks of {tile} rows")
+    expect = (
+        ("weights", weights, (n_blocks, tile, tile), dtype),
+        ("arrivals", arrivals, (n_blocks, tile, -(-tile // 32)),
+         torch.int32),
+        ("src_tiles", src_tiles, (n_blocks,), torch.int32),
+        ("dest_offsets", dest_offsets, (n_tiles + 1,), torch.int32),
+        ("live_rows.rows", live_rows.rows, (n_live,), torch.uint8),
+        ("live_rows.offsets", live_rows.offsets, (n_blocks + 1,),
+         torch.int32),
+    )
+    for name, x, want, dt in expect:
+        if (x.device != dev or x.shape != want or x.dtype != dt
+                or not x.is_contiguous() or x.data_ptr() % 16):
+            raise ValueError(
+                f"delivery_kernel: {name} must be a contiguous, 16-byte "
+                f"aligned {dt} tensor of shape {want} on {dev}; got "
+                f"{x.dtype} {tuple(x.shape)} on {x.device}")
+    is_double = int(dtype == torch.float64)
+    if _library().sanafe_delivery_smem(n_tiles, tile, is_double) < 0:
+        raise ValueError(
+            f"delivery_kernel: {n_tiles} tiles of {tile} {dtype} need more "
+            "than a CTA's 227 KB of shared memory")
+    # fresh allocations, so 16-byte aligned; an empty list is not read
+    entries, tile_entries = live_entries(live_rows, src_tiles, dest_offsets,
+                                         tile)
+    plan.update(entries=entries, tile_entries=tile_entries,
+                launch=(weights.data_ptr(), arrivals.data_ptr(),
+                        entries.data_ptr(), tile_entries.data_ptr(), n_tiles,
+                        tile, is_double, dev.index or 0))
+    return Delivery(**plan)
+
+
+def delivery_launch(fired_tiles, plan: Delivery):
+    """``delivery_kernel`` on ``plan``'s operands: the CUDA kernel for a
+    CUDA plane, ``delivery_live_plain`` for a CPU one. Checks only the
+    plane ``fired_tiles`` ([n_tiles, tile], the plan's shape, in the
+    weights' dtype), allocates the outputs and launches on the current
+    stream; counts on ``delivery_kernel.launches``."""
+    dev = fired_tiles.device
+    if dev.type == "cpu":
+        return _live_sum(fired_tiles, plan.weights, plan.arrivals,
+                         plan.entries, plan.tile_entries)
+    dtype = plan.weights.dtype
+    if (plan.launch is None or dev != plan.weights.device
+            or fired_tiles.dtype != dtype
+            or tuple(fired_tiles.shape) != plan.shape
+            or not fired_tiles.is_contiguous()
+            or fired_tiles.data_ptr() % 16):
+        raise ValueError(
+            f"delivery_kernel: fired_tiles must be a contiguous, 16-byte "
+            f"aligned {dtype} tensor of shape {plan.shape} on "
+            f"{plan.weights.device}; got {fired_tiles.dtype} "
+            f"{tuple(fired_tiles.shape)} on {dev}")
+    out_cur = torch.empty(plan.shape, dtype=dtype, device=dev)
+    arrived = torch.empty(plan.shape, dtype=torch.bool, device=dev)
+    lib = _library()
+    w, a, entries, tile_entries, n_tiles, tile, is_double, index = \
+        plan.launch
+    err = lib.sanafe_delivery_launch(
+        fired_tiles.data_ptr(), w, a, entries, tile_entries,
+        out_cur.data_ptr(), arrived.data_ptr(), n_tiles, tile, is_double,
+        index, torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError("delivery kernel launch failed: "
+                           + lib.sanafe_delivery_error_string(err).decode())
+    delivery_kernel.launches += 1
+    return out_cur, arrived
+
+
+def delivery_kernel(fired_tiles, weights, arrivals, src_tiles, dest_offsets,
+                    max_blocks_per_dest: int, live_rows: LiveRows):
+    """One delivery: the CUDA kernel for CUDA tensors,
+    ``delivery_live_plain`` for CPU tensors.
+
+    ``fired_tiles`` [n_tiles, tile] 0/1 in the program dtype, ``weights``
+    [B, tile, tile] in the same dtype, ``arrivals`` [B, tile,
+    ceil(tile/32)] int32 (``pack_arrival_plane``), ``src_tiles`` [B] int32,
+    ``dest_offsets`` [n_tiles + 1] int32, ``live_rows`` the blocks' live
+    rows (``build_live_rows`` of these weights and arrivals, or a list with
+    more rows, such as ``every_row_live``). Returns (currents [n_tiles,
+    tile] in the program dtype, arrived [n_tiles, tile] bool), equal to
+    ``delivery_live_plain``'s bit for bit, and to ``delivery_plain``'s
+    currents and ``cnt > 0`` wherever the partial sums are exact (integer
+    weights).
+
+    The kernel reads only the listed rows that fired, in one launch; it runs
+    float32 and float64, launches on the current stream and does not
+    synchronise. It checks every operand on each call; a caller that
+    launches on the same operands step after step builds ``plan_delivery``
+    once and calls ``delivery_launch``. ``delivery_kernel.launches`` counts
+    its launches."""
+    dev = fired_tiles.device
+    if dev.type == "cpu":
+        return delivery_live_plain(fired_tiles, weights, arrivals,
+                                   src_tiles, dest_offsets,
+                                   max_blocks_per_dest, live_rows)
+    if dev.type != "cuda":
+        raise ValueError(f"delivery_kernel: unsupported device {dev}")
+    if fired_tiles.dim() != 2:
+        raise ValueError(
+            "delivery_kernel: fired_tiles must be [n_tiles, tile]")
+    tile = fired_tiles.shape[1]
+    if not 0 < tile <= MAX_TILE or tile % 4:
+        raise ValueError(f"delivery_kernel: tile {tile} is not a multiple "
+                         f"of 4 up to {MAX_TILE}")
+    return delivery_launch(fired_tiles, plan_delivery(
+        weights, arrivals, src_tiles, dest_offsets, max_blocks_per_dest,
+        live_rows))
+
+
+delivery_kernel.launches = 0
 
 
 def delivery_batch_plain(fired_tiles, weights, arrivals, src_tiles,
@@ -509,8 +670,9 @@ def delivery_batch_kernel(fired_tiles, weights, arrivals, src_tiles,
     the union over the samples. Each sample adds its fired rows in
     ascending order within a block and its blocks in ascending order, from
     +0.0; an unlisted row holds only +-0.0 and changes no bit of a sum. So
-    two launches on the same inputs give the same bits, and the result
-    equals ``delivery_kernel`` and ``delivery_batch_plain`` bit for bit
+    two launches on the same inputs give the same bits, each sample equals
+    ``delivery_kernel``'s delivery of its plane bit for bit (the same
+    order), and the result equals ``delivery_batch_plain`` bit for bit
     wherever the partial sums are exact (integer weights), and to rounding
     otherwise. Float32 and float64; launches on the current stream and does
     not synchronise.

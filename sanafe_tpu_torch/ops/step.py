@@ -55,11 +55,14 @@ from ..models import (
 )
 from .conv import ConvDelivery, build_conv_delivery, conv_arrays, conv_deliver
 from .delivery import (
+    Delivery,
     block_rows_sum,
+    build_live_rows,
     delivery_batch_launch,
-    delivery_kernel,
+    delivery_launch,
     delivery_plain,
     pack_arrival_plane,
+    plan_delivery,
     sorted_segment_sum,
 )
 
@@ -106,6 +109,10 @@ class BlockDelivery:
     # [B, tile, ceil(tile/32)] int32, counts > 0 packed 32 columns a word
     # (pack_arrival_plane); only in a program that delivers through the kernel
     arrivals: Optional[torch.Tensor] = None
+    # the kernel's operands, checked once (plan_delivery), with the rows it
+    # reads (plan.live_rows: build_live_rows of weights and arrivals); only
+    # in a program that delivers through the kernel
+    plan: Optional[Delivery] = None
 
 
 def block_tiling(n: int) -> tuple:
@@ -423,7 +430,9 @@ def make_device_program(
     CUDA" (float32 and float64). With the kernel on, the program is built as
     sanafe_tpu builds it with ``pallas_delivery`` set: no dense delivery
     columns and no ``block_wc``; and the block's int8 counts give way to
-    the packed arrival plane the kernel reads (``block.arrivals``). The TPU kernel's ``tile >= 128`` condition
+    the packed arrival plane the kernel reads (``block.arrivals``), beside
+    its checked operands (``block.plan``) with the list of rows it reads
+    (``block.plan.live_rows``). The TPU kernel's ``tile >= 128`` condition
     is its (8, 128) layout's; the CUDA kernel takes every tile size. On the
     CPU the default program is sanafe_tpu's default one."""
     c = compiled
@@ -602,6 +611,13 @@ def make_device_program(
             block.arrivals = pack_arrival_plane(block.counts)
             block.counts = None
             arrays["block_arrivals"] = block.arrivals
+            # the rows that hold an edge, once (the blocks never change:
+            # set_attributes and load rebuild the program), and the
+            # kernel's operands checked once for every step
+            block.plan = plan_delivery(
+                block.weights, block.arrivals, block.src_tiles,
+                block.dest_offsets, block.max_blocks_per_dest,
+                build_live_rows(block.weights, block.arrivals))
         else:
             arrays["block_counts"] = block.counts
     sync_delay = c.arch.ts_sync_delay_table.get(c.mapped_tiles)
@@ -1234,9 +1250,8 @@ def _block_deliver(prog: DeviceProgram, a, fired_f, n: int):
             acc_wc[:, blk.tile :].reshape(-1)[:n] > 0,
         )
     if prog.kernel_delivery:
-        acc, arrived = delivery_kernel(
-            tiles_f, blk.weights, blk.arrivals, blk.src_tiles,
-            blk.dest_offsets, blk.max_blocks_per_dest)
+        # the live rows that fired (blk.plan: the list, checked once)
+        acc, arrived = delivery_launch(tiles_f, blk.plan)
         return acc.reshape(-1)[:n], arrived.reshape(-1)[:n]
     acc, cnt = delivery_plain(tiles_f, blk.weights, blk.counts, blk.src_tiles,
                               blk.dest_offsets, blk.max_blocks_per_dest)

@@ -154,7 +154,7 @@ def main() -> int:
 
     def sixteen():
         for _ in range(chip_smoke.PARAM_SAMPLES):
-            delivery.delivery_kernel(x1, *shared)
+            delivery.delivery_kernel(x1, *shared, live)
 
     single_ms = chip_smoke.queued_ms(sixteen, 3)
     dense = chip_smoke.dense_weights(blk)

@@ -23,12 +23,16 @@ cfg_stochastic run on the card in float64 byte for byte, and a float32
 Hodgkin-Huxley chip gives the CPU's raster.
 
 The sample-batched delivery kernel (``csrc/delivery_batch_kernel.cu``)
-equals ``delivery_batch_plain`` and, sample by sample, ``delivery_kernel``
-bit for bit on integer weights (no row fired, one sample, 16, 17, 33, 64
-and 65 samples, tiles of 8 to 256, per-sample weights and arrival planes,
-weights of -0.0, blocks with one live row in 64, and every row listed),
-within 1e-12 on real float64 weights and the same bits on two launches,
-and a 3-sample ``ParameterSweep`` on the card gives the CPU's counters.
+equals ``delivery_batch_plain`` bit for bit on integer weights (no row
+fired, one sample, 16, 17, 33, 64 and 65 samples, tiles of 8 to 256,
+per-sample weights and arrival planes, weights of -0.0, blocks with one
+live row in 64, and every row listed) and within 1e-12 on real float64
+weights; sample by sample it equals ``delivery_kernel`` on the same list
+bit for bit, real weights included (one order); two launches give the same
+bits; and a 3-sample ``ParameterSweep`` on the card gives the CPU's
+counters. The single-sample kernel, given the live-row list, equals
+``delivery_live_plain`` and ``delivery_batch_kernel`` at one sample bit for
+bit on real float32 and float64 weights.
 
 Card only (``python -m pytest tests/test_torch_cuda.py -m cuda
 --noconftest``); the tests skip where there is no card.
@@ -541,20 +545,152 @@ def test_delivery_batch_kernel_matches_plain(cuda, case):
     for b in range(count):
         w_b = weights[b] if weights.dim() == 4 else weights
         a_b = arrivals[b] if arrivals.dim() == 4 else arrivals
+        # the union list serves each sample: its other rows add +-0.0
         one_cur, one_arrived = delivery_kernel(
             x[b].contiguous(), w_b.contiguous(), a_b.contiguous(),
-            blk.src_tiles, blk.dest_offsets, blk.max_blocks_per_dest)
+            blk.src_tiles, blk.dest_offsets, blk.max_blocks_per_dest, live)
         assert torch.equal(arrived[b], one_arrived), b
-        if case == "f64_real":
-            # delivery_kernel adds 8 warps' partial sums
-            torch.testing.assert_close(cur[b], one_cur, rtol=1e-12,
-                                       atol=1e-12)
-        else:
-            assert _same_bits(cur[b], one_cur), b
+        # one order: each column adds the fired live rows in list order
+        assert _same_bits(cur[b], one_cur), b
     if case == "none":
         assert not arrived.any() and not cur.any()
     else:
         assert arrived.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("weights_kind", ["chip", "real", "special"])
+def test_delivery_kernel_matches_live_plain_and_batch(cuda, weights_kind,
+                                                      dtype):
+    """The single-sample kernel over ``build_live_rows`` equals
+    ``delivery_live_plain`` and ``delivery_batch_kernel`` at one sample on
+    the same list bit for bit, and itself on a second launch, on every
+    fired pattern: the 2048-neuron random chip (8 tiles: rows cut into
+    column slices) with its integer weights (then also ``delivery_plain``)
+    and with seeded real weights on its cells; and seeded blocks with -0.0
+    cells, NaN and inf rows and a row live by an arrival bit alone
+    (``special``, 5 tiles of 64). One launch a call."""
+    from sanafe_tpu_torch.compile import compile_chip
+    from sanafe_tpu_torch.ops.delivery import (
+        build_live_rows,
+        delivery_batch_kernel,
+        delivery_kernel,
+        delivery_live_plain,
+        delivery_plain,
+        pack_arrival_plane,
+    )
+    from sanafe_tpu_torch.ops.step import build_block_delivery
+
+    from test_torch_live_delivery import special_blocks
+
+    if weights_kind == "special":
+        blk, _, _ = special_blocks(
+            64, np.float64 if dtype == torch.float64 else np.float32)
+        blk.src_tiles, blk.dest_offsets = (blk.src_tiles.to(cuda),
+                                           blk.dest_offsets.to(cuda))
+        weights, counts = blk.weights.to(cuda), blk.counts.to(cuda)
+        n = blk.n_pad
+    else:
+        compiled = compile_chip(*random_chip(
+            st, cores=16, neurons_per_core=128, n_log_potential=0))
+        n = compiled.n_neurons
+        blk = build_block_delivery(compiled, dtype, cuda)
+        weights, counts = blk.weights, blk.counts
+        if weights_kind == "real":
+            rng = np.random.default_rng(6)
+            values = rng.uniform(-1, 1, size=tuple(weights.shape))
+            weights = torch.from_numpy(values).to(cuda, dtype) * (counts > 0)
+    plane = pack_arrival_plane(counts)
+    live = build_live_rows(weights, plane)
+    assert 0 < live.count < weights.shape[0] * blk.tile
+    args = (weights, plane, blk.src_tiles, blk.dest_offsets,
+            blk.max_blocks_per_dest, live)
+    planes = _sample_planes(blk, n, BATCH_PATTERNS, dtype, cuda)
+    for pattern, x in zip(BATCH_PATTERNS, planes):
+        before = delivery_kernel.launches
+        cur, arrived = delivery_kernel(x, *args)
+        again, again_arrived = delivery_kernel(x, *args)
+        ref_cur, ref_arrived = delivery_live_plain(x, *args)
+        batch_cur, batch_arrived = delivery_batch_kernel(x[None], *args)
+        torch.cuda.synchronize()
+        assert delivery_kernel.launches == before + 2
+        assert cur.dtype == dtype and arrived.dtype == torch.bool
+        for other, other_arrived in ((again, again_arrived),
+                                     (ref_cur, ref_arrived),
+                                     (batch_cur[0], batch_arrived[0])):
+            assert _same_bits(cur, other), pattern
+            assert torch.equal(arrived, other_arrived), pattern
+        if weights_kind == "chip":
+            plain_cur, plain_cnt = delivery_plain(
+                x, weights, counts, blk.src_tiles, blk.dest_offsets,
+                blk.max_blocks_per_dest)
+            assert _same_bits(cur, plain_cur), pattern
+            assert torch.equal(arrived, plain_cnt > 0), pattern
+        if pattern == "none":
+            assert not arrived.any() and not cur.any()
+        elif pattern == "all":
+            assert arrived.any()
+            if weights_kind == "special":
+                assert torch.isnan(cur).any() and torch.isinf(cur).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n_tiles", [128, 140])
+def test_delivery_kernel_ring_laps(cuda, dtype, n_tiles):
+    """128 or 140 destination tiles of 256 (rows not sliced, so the ring
+    holds 6 float32 or 3 float64 stages of 32 rows, a float64 stage 66,560
+    bytes; 140 tiles are more CTAs than the card's 132 SMs), three seeded
+    integer-weight blocks a tile and every row listed: 24 stages a CTA, the
+    ring lapped several times. The plan accepts the shape, and the kernel
+    equals delivery_live_plain, delivery_batch_kernel at one sample and
+    delivery_plain bit for bit on three fired patterns."""
+    from sanafe_tpu_torch.ops.delivery import (
+        delivery_batch_kernel,
+        delivery_kernel,
+        delivery_live_plain,
+        delivery_plain,
+        every_row_live,
+        pack_arrival_plane,
+        plan_delivery,
+    )
+    from sanafe_tpu_torch.ops.step import BlockDelivery
+
+    tile = 256
+    rng = np.random.default_rng(11)
+    dest = np.repeat(np.arange(n_tiles, dtype=np.int32), 3)
+    src = ((dest + np.tile(np.arange(3), n_tiles) * 37) % n_tiles).astype(
+        np.int32)
+    counts = (rng.random((len(dest), tile, tile)) < 0.02).astype(np.int8)
+    weights = counts * rng.integers(-8, 9, counts.shape)
+    offsets = np.searchsorted(dest, np.arange(n_tiles + 1)).astype(np.int32)
+    blk = BlockDelivery(
+        tile=tile, n_tiles=n_tiles, n_pad=n_tiles * tile,
+        src_tiles=torch.from_numpy(src).to(cuda),
+        dest_tiles=torch.from_numpy(dest).to(cuda),
+        weights=torch.from_numpy(weights).to(cuda, dtype),
+        counts=torch.from_numpy(counts).to(cuda),
+        dest_offsets=torch.from_numpy(offsets).to(cuda),
+        max_blocks_per_dest=3)
+    plane = pack_arrival_plane(blk.counts)
+    live = every_row_live(len(dest), tile, cuda)
+    args = (blk.weights, plane, blk.src_tiles, blk.dest_offsets, 3, live)
+    assert plan_delivery(*args).launch is not None
+    planes = _sample_planes(blk, blk.n_pad, ("sparse", "all", "mixed"),
+                            dtype, cuda)
+    for x in planes:
+        cur, arrived = delivery_kernel(x, *args)
+        ref_cur, ref_arrived = delivery_live_plain(x, *args)
+        batch_cur, batch_arrived = delivery_batch_kernel(x[None], *args)
+        plain_cur, plain_cnt = delivery_plain(
+            x, blk.weights, blk.counts, blk.src_tiles, blk.dest_offsets, 3)
+        torch.cuda.synchronize()
+        assert _same_bits(cur, ref_cur) and _same_bits(cur, batch_cur[0])
+        assert _same_bits(cur, plain_cur)
+        assert torch.equal(arrived, ref_arrived)
+        assert torch.equal(arrived, batch_arrived[0])
+        assert torch.equal(arrived, plain_cnt > 0) and arrived.any()
 
 
 @pytest.mark.cuda

@@ -13,18 +13,19 @@
   products are summed by different matmul implementations).
 - What the CUDA kernel reads instead of the int8 counts, the packed arrival
   plane (``pack_arrival_plane``), unpacked with numpy equals ``counts > 0``
-  of sanafe_tpu's ``build_block_delivery``; the plain version of the
-  kernel's compaction phase (``fired_rows_plain``) equals numpy's
-  ``nonzero`` per tile; ``delivery_packed_plain`` (the wrapper's path for
-  CPU tensors) equals ``delivery_plain``'s currents and ``cnt > 0``. All
-  exact: masks, lists and integer weights.
-- The ``cuda`` tests hold the CUDA kernel to ``delivery_plain`` on the card
+  of sanafe_tpu's ``build_block_delivery``; ``delivery_packed_plain`` and
+  the wrapper's path for CPU tensors (``delivery_live_plain`` over the
+  live-row list) equal ``delivery_plain``'s currents and ``cnt > 0``. All
+  exact: masks and integer weights.
+- The ``cuda`` tests hold the CUDA kernel (given ``build_live_rows`` of the
+  blocks) to ``delivery_plain`` on the card
   (``python -m pytest tests/test_torch_delivery.py -m cuda --noconftest``),
-  currents exact on integer weights and arrivals equal to ``cnt > 0``, on
-  the random chip and on edge shapes (tiles under 256 and narrower than a
-  warp's 128-column row, an empty destination tile, source tiles fired
-  whole beside silent ones), in float32 and float64; they skip where there
-  is no card.
+  currents exact on integer weights and arrivals equal to ``cnt > 0``, and
+  to ``delivery_live_plain`` bit for bit, on the random chip and on edge
+  shapes (tiles under 256 and narrower than a warp's 128-column row, an
+  empty destination tile, source tiles fired whole beside silent ones), in
+  float32 and float64; they skip where there is no card.
+  ``tests/test_torch_live_delivery.py`` holds the list's order.
 """
 
 import numpy as np
@@ -33,10 +34,11 @@ import torch
 
 import sanafe_tpu_torch
 from sanafe_tpu_torch.ops.delivery import (
+    build_live_rows,
     delivery_kernel,
+    delivery_live_plain,
     delivery_packed_plain,
     delivery_plain,
-    fired_rows_plain,
     pack_arrival_plane,
     unpack_arrival_plane,
 )
@@ -219,27 +221,11 @@ def test_arrival_plane_matches_jax_counts(name):
     assert torch.equal(unpack_arrival_plane(plane, pb.tile), pb.counts > 0)
 
 
-@pytest.mark.parametrize("tile", [8, 40, 256])
-def test_fired_rows_plain_matches_numpy_nonzero(tile):
-    """The compaction phase's plain version: each tile's ascending
-    fired-row list and its length (exact), zero-padded."""
-    rng = np.random.default_rng(3)
-    fired = rng.random((6, tile)) < 0.4
-    fired[1] = False  # a silent tile
-    fired[2] = True  # a tile fired whole
-    rows, lens = fired_rows_plain(torch.from_numpy(fired.astype(np.float32)))
-    assert rows.dtype == torch.uint8 and lens.dtype == torch.int32
-    for s in range(fired.shape[0]):
-        expect = np.nonzero(fired[s])[0]
-        assert int(lens[s]) == len(expect)
-        np.testing.assert_array_equal(rows[s, : len(expect)].numpy(), expect)
-        assert not rows[s, len(expect):].any()
-
-
 def kernel_args(pb, x):
-    return (x.view(pb.n_tiles, pb.tile), pb.weights,
-            pack_arrival_plane(pb.counts), pb.src_tiles, pb.dest_offsets,
-            pb.max_blocks_per_dest)
+    plane = pack_arrival_plane(pb.counts)
+    return (x.view(pb.n_tiles, pb.tile), pb.weights, plane, pb.src_tiles,
+            pb.dest_offsets, pb.max_blocks_per_dest,
+            build_live_rows(pb.weights, plane))
 
 
 def plain_args(pb, x):
@@ -249,7 +235,8 @@ def plain_args(pb, x):
 
 def test_delivery_kernel_takes_plain_for_cpu_tensors():
     """On CPU tensors the wrapper returns the plain version's result
-    (delivery_plain's currents and cnt > 0) and launches nothing."""
+    (delivery_live_plain's, equal to delivery_plain's currents and cnt > 0
+    on the chip's integer weights) and launches nothing."""
     _, port_compiled = compile_both("random1024")
     pb = build_block_delivery(port_compiled, torch.float32, "cpu")
     n = port_compiled.n_neurons
@@ -258,11 +245,13 @@ def test_delivery_kernel_takes_plain_for_cpu_tensors():
     before = delivery_kernel.launches
     a = delivery_kernel(*kernel_args(pb, x))
     b = delivery_plain(*plain_args(pb, x))
-    c = delivery_packed_plain(*kernel_args(pb, x))
+    c = delivery_packed_plain(*kernel_args(pb, x)[:-1])
+    d = delivery_live_plain(*kernel_args(pb, x))
     assert delivery_kernel.launches == before
     assert a[1].dtype == torch.bool
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1] > 0)
     assert torch.equal(c[0], b[0]) and torch.equal(c[1], b[1] > 0)
+    assert torch.equal(a[0], d[0]) and torch.equal(a[1], d[1])
 
 
 @pytest.fixture()
@@ -281,6 +270,9 @@ def hold_kernel_to_plain(pb, x):
     assert cur.dtype == x.dtype and arrived.dtype == torch.bool
     assert torch.equal(cur, ref_cur)
     assert torch.equal(arrived, ref_cnt > 0)
+    live_cur, live_arrived = delivery_live_plain(*kernel_args(pb, x))
+    assert torch.equal(cur.view(torch.uint8), live_cur.view(torch.uint8))
+    assert torch.equal(arrived, live_arrived)
     return arrived
 
 
@@ -355,6 +347,8 @@ def test_delivery_kernel_rejects_bad_arguments(cuda):
     args = list(kernel_args(pb, x))
     with pytest.raises(ValueError, match="arrivals"):
         delivery_kernel(args[0], args[1], pb.counts, *args[3:])
+    with pytest.raises(ValueError, match="live_rows"):
+        delivery_kernel(*args[:-1], None)
     odd = torch.ones((3, 6), device=cuda)
     with pytest.raises(ValueError, match="multiple of 4"):
         delivery_kernel(odd, *args[1:])

@@ -178,6 +178,37 @@ def _rank_main(rank: int, world: int, store: str, out: str, jax_npz: str):
             compiled.n_neurons
         res["active_sticky"] = chip._mesh is mesh
 
+        # a kernel-delivery program on each rank (the CPU runs the kernel's
+        # plain version), built from the rank's own blocks with their list
+        import functools
+
+        import sanafe_tpu_torch.chip as port_chip
+        from sanafe_tpu_torch.ops.delivery import build_live_rows
+
+        build = port_chip.make_device_program
+        port_chip.make_device_program = functools.partial(build,
+                                                          use_kernel=True)
+        try:
+            chip = _port(random_chip)
+            res["kernel_mesh"] = _summary(_sim_traces(
+                chip, out / "kernel_mesh", ("spikes",), CHIP_STEPS,
+                mesh=mesh))
+        finally:
+            port_chip.make_device_program = build
+        prog = next(iter(chip._engines.values())).prog
+        blk = prog.block
+        want = build_live_rows(blk.weights, blk.arrivals)
+        (out / f"kernel_mesh_r{rank}.pkl").write_bytes(pickle.dumps({
+            "kernel": prog.kernel_delivery and prog.shard is not None,
+            "count": blk.plan.live_rows.count,
+            "equal": (blk.plan.live_rows.count == want.count
+                      and torch.equal(blk.plan.live_rows.rows, want.rows)
+                      and torch.equal(blk.plan.live_rows.offsets,
+                                      want.offsets)),
+            "planned": blk.plan.weights is blk.weights,
+            "tiles": sorted(set(blk.dest_tiles.tolist())),
+        }))
+
         port_network.BULK_EDGE_THRESHOLD = 1  # conv_chip's structured path
         for name, (builder, names, _) in SHARDED.items():
             chip = _port(builder)
@@ -425,6 +456,30 @@ def test_block_edges_deliver_each_rank_whole(world):
         tiles_built.append(set(blk.dest_tiles.tolist()))
     assert tiles_built[0] == {0}
     assert set().union(*tiles_built) == {0, 1}
+
+
+def test_kernel_program_on_the_mesh(ranks, tmp_path):
+    """Each rank's kernel-delivery program carries the live-row list of its
+    own blocks (``build_live_rows`` of them), the ranks' destination tiles
+    cover the chip, and the sharded run through the lists gives one
+    process's spike raster and counters."""
+    world, out, res = ranks
+    ranks_seen = [pickle.loads((out / f"kernel_mesh_r{r}.pkl").read_bytes())
+                  for r in range(world)]
+    for info in ranks_seen:
+        assert info["kernel"] and info["equal"] and info["planned"]
+        assert info["count"] > 0
+    assert ranks_seen[0]["tiles"] == [0]
+    assert set().union(*(set(i["tiles"]) for i in ranks_seen)) == {0, 1}
+    one = _sim_traces(_port(random_chip), tmp_path, ("spikes",), CHIP_STEPS)
+    mesh_run = res["kernel_mesh"]
+    assert mesh_run["device_engine"] == "scan"
+    for key in ("spikes", "neurons_fired", "neurons_updated",
+                "packets_sent", "sim_time"):
+        assert mesh_run[key] == one[key], key
+    assert mesh_run["neurons_fired"] > 0
+    assert (out / "kernel_mesh" / "spikes.csv").read_bytes() == (
+        tmp_path / "spikes.csv").read_bytes()
 
 
 def test_exchange_keeps_every_bit(ranks):

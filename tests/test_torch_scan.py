@@ -21,7 +21,9 @@
   both errors together (1.003e-6 between the packages on random2048).
 
 The port runs on the CPU, where the delivery kernel's wrapper takes its
-plain version; ``use_kernel=True`` builds the kernel-shaped program.
+plain version; ``use_kernel=True`` builds the kernel-shaped program, whose
+every step delivers through the live-row list (``delivery_launch`` on the
+program's plan: ``delivery_live_plain``'s order).
 """
 
 import jax
@@ -72,6 +74,32 @@ def make_feeds(compiled, n_steps, seed=0):
         total = sum(len(members) for _, members in compiled.input_units)
         feeds["poisson"] = rng.random((n_steps, total)) < 0.3
     return feeds
+
+
+def through_the_list(monkeypatch):
+    """Record the plan of every ``delivery_launch`` the port's step makes
+    (the kernel-delivery programs' block delivery); returns the list."""
+    from sanafe_tpu_torch.ops import step as port_step
+
+    plans = []
+    launch = port_step.delivery_launch
+
+    def recorded(fired_tiles, plan):
+        plans.append(plan)
+        return launch(fired_tiles, plan)
+
+    monkeypatch.setattr(port_step, "delivery_launch", recorded)
+    return plans
+
+
+def assert_through_the_list(pprog, plans, steps=STEPS):
+    """A kernel-delivery program delivered every step through its list."""
+    if not pprog.kernel_delivery:
+        assert not plans
+        return
+    blk = pprog.block
+    assert blk.plan is not None and blk.plan.live_rows.count > 0
+    assert len(plans) == steps and all(p is blk.plan for p in plans)
 
 
 def scan_both(name, dtype, use_kernel=None, steps=STEPS):
@@ -158,12 +186,14 @@ def assert_scan_match(jstate, jout, pstate, pout, f64_lane, exact=True,
 
 @pytest.mark.parametrize("use_kernel", [None, True])
 @pytest.mark.parametrize("name", sorted(ALL_CHIPS))
-def test_scan_matches_jax_float64(f64, name, use_kernel):
+def test_scan_matches_jax_float64(f64, monkeypatch, name, use_kernel):
+    plans = through_the_list(monkeypatch)
     jprog, pprog, jstate, jout, pstate, pout = scan_both(
         name, torch.float64, use_kernel
     )
     assert pprog.kernel_delivery == bool(use_kernel and pprog.block is not None
                                          and pprog.block.weights.shape[0])
+    assert_through_the_list(pprog, plans)
     assert int(np.round(jout["stats"][:, 4]).sum()) > 0  # the chip fires
     assert_scan_match(jstate, jout, pstate, pout, f64_lane=True,
                       exact=name not in FMA_CHIPS)
@@ -172,13 +202,18 @@ def test_scan_matches_jax_float64(f64, name, use_kernel):
 @pytest.mark.parametrize("use_kernel", [None, True])
 @pytest.mark.parametrize("name", ["random", "random1024", "random2048",
                                   "delay", "multitap"])
-def test_scan_matches_jax_float32(f32, name, use_kernel):
+def test_scan_matches_jax_float32(f32, monkeypatch, name, use_kernel):
     """Covers the fused roll-up with dense delivery (random), with block_wc
     (random1024) and with the einsum delivery (random2048), each deferred
-    to one batched roll-up after the loop."""
+    to one batched roll-up after the loop; with ``use_kernel=True``, the
+    delivery through the live-row list."""
+    plans = through_the_list(monkeypatch)
     jprog, pprog, jstate, jout, pstate, pout = scan_both(
         name, torch.float32, use_kernel
     )
+    assert_through_the_list(pprog, plans)
+    assert pprog.kernel_delivery == bool(use_kernel and pprog.block
+                                         is not None)
     for flag in ("fused_rollup", "n_stats_cols"):
         assert getattr(jprog, flag) == getattr(pprog, flag), flag
     if not use_kernel:
