@@ -61,6 +61,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import tracing
 from .ops.conv import hwio_to_oihw
 from .ops.delivery import (
     build_live_rows,
@@ -165,6 +166,14 @@ class ParameterSweep:
             )
         self.compiled = c
         self.device = chip.device
+        # run() calls begun: the call id of their spans (tracing.py)
+        self.runs = 0
+        with tracing.span("sanafe.setup.sweep"):
+            self._build(chip, overrides, dtype, mesh)
+
+    def _build(self, chip, overrides: dict, dtype, mesh) -> None:
+        """The sweep's program, its per-sample arrays and its graphs."""
+        c = self.compiled
         # The fused roll-up / dense-delivery matvec bakes every cost column
         # and the edge weights into its coefficient matrix at build time;
         # overriding one of those arrays per sample would silently no-op.
@@ -264,7 +273,15 @@ class ParameterSweep:
 
         One ``ops/scan.py:run_scan`` a chunk (on the card its CUDA graphs,
         ``self.graphs``, captured at the first run): the stats are summed
-        on the device and copied to the host once a chunk."""
+        on the device and copied to the host once a chunk. A call is a
+        ``sanafe.sweep.run`` span, its id ``self.runs`` (``tracing.py``)."""
+        self.runs += 1
+        lo, hi = self.samples
+        with tracing.span("sanafe.sweep.run", owner=self, call=self.runs,
+                          steps=timesteps, samples=hi - lo):
+            return self._run(timesteps, chunk)
+
+    def _run(self, timesteps: int, chunk: int) -> dict:
         lo, hi = self.samples
         prog = self.prog
         state = initial_state(self.compiled, prog.dtype, self.device,
@@ -275,12 +292,14 @@ class ParameterSweep:
         remaining = timesteps
         while remaining > 0:
             length = min(chunk, remaining)
-            state, out = run_scan(prog, state, t, length, graphs=self.graphs,
-                                  arrays=self.arrays)
-            stats = out["stats"].to(torch.float64)  # [T, B, 11]
-            counters += torch.round(stats[:, :, :5]).to(
-                torch.int64).sum(dim=0).cpu().numpy()
-            energies += stats[:, :, 5:11].sum(dim=0).cpu().numpy()
+            with tracing.span("sanafe.chunk", steps=length):
+                state, out = run_scan(prog, state, t, length,
+                                      graphs=self.graphs, arrays=self.arrays)
+                with tracing.span("sanafe.sweep.readback"):
+                    stats = out["stats"].to(torch.float64)  # [T, B, 11]
+                    counters += torch.round(stats[:, :, :5]).to(
+                        torch.int64).sum(dim=0).cpu().numpy()
+                    energies += stats[:, :, 5:11].sum(dim=0).cpu().numpy()
             t += length
             remaining -= length
         if self.mesh is not None:

@@ -58,7 +58,6 @@ from __future__ import annotations
 import os
 import sys
 import threading
-import time
 import warnings
 from dataclasses import dataclass
 from pathlib import Path
@@ -67,6 +66,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from . import tracing
 from .arch import Architecture
 from .compile import CompiledChip, compile_chip
 from .network import SpikingNetwork
@@ -408,7 +408,8 @@ class SpikingChip:
         self.total_messages_sent = 0
         self.total_neurons_updated = 0
         self.total_neurons_fired = 0
-        # simulator wall-time breakdown (run_summary.yaml wall_time section)
+        # simulator wall-time breakdown (run_summary.yaml wall_time section):
+        # sums of the spans that cover the same code (tracing.py)
         self.setup_wall = 0.0
         self.neuron_processing_wall = 0.0
         self.message_processing_wall = 0.0
@@ -437,12 +438,15 @@ class SpikingChip:
         self._mesh = None
         self._padded_compiled: Optional[CompiledChip] = None
         self._state_mesh = None
-        # host seconds and count of this rank's collectives in its steps
+        # host seconds and count of this rank's collectives in its sim
+        # calls (the sanafe.exchange spans)
         self.exchange_wall = 0.0
         self.exchanges = 0
         # CUDA graph replays of the step scan and the DAG engine
         # (ops/scan.py:ScanGraphs, ops/dag_chunk.py:DagGraphs)
         self.graph_replays = 0
+        # sim() calls begun: the call id of their spans (tracing.py)
+        self.sim_calls = 0
 
     # --- loading -------------------------------------------------------------
     def load(self, net: SpikingNetwork, overwrite: bool = False) -> None:
@@ -451,7 +455,10 @@ class SpikingChip:
         from scratch; with ``overwrite=False`` on an already-loaded chip the
         new network augments it — new neurons map into the remaining slots
         and existing neurons keep their live state."""
-        start = time.perf_counter()
+        with tracing.span("sanafe.setup.load", wall="setup_wall", owner=self):
+            self._load(net, overwrite)
+
+    def _load(self, net: SpikingNetwork, overwrite: bool) -> None:
         if self.compiled is not None and not overwrite:
             for name in net.groups:
                 if name in self._merged_groups():
@@ -495,7 +502,6 @@ class SpikingChip:
         self._spike_labels = None
         self._spike_blob = None
         self._spike_addresses = None
-        self.setup_wall += time.perf_counter() - start
 
     def _merged_groups(self) -> set:
         return {name for loaded in self._nets for name in loaded.groups}
@@ -874,6 +880,32 @@ class SpikingChip:
             raise RuntimeError("No network loaded; call load() first")
         if timing_model not in TIMING_MODELS:
             raise ValueError(f"Timing model not recognized: {timing_model}")
+        # accepted for API parity; the device program is already parallel
+        del processing_threads, scheduler_threads
+        self.sim_calls += 1
+        with tracing.span("sanafe.sim", owner=self, call=self.sim_calls,
+                          steps=timesteps, timing_model=timing_model):
+            with tracing.span("sanafe.sim.prepare"):
+                lead, engine, sweep, schedule, timing_model = (
+                    self._prepare_sim(
+                        timesteps, timing_model, spike_trace, potential_trace,
+                        neuron_trace, perf_trace, message_trace,
+                        write_trace_headers, chunk, device_sweep, mesh))
+            rd = RunData(timestep_start=self.total_timesteps + 1,
+                         timesteps_executed=timesteps)
+            interrupted = self._run_chunks(lead, engine, sweep, schedule,
+                                           timing_model, rd, heartbeat)
+            with tracing.span("sanafe.sim.finish"):
+                return self._finish_sim(lead, engine, rd, interrupted,
+                                        timesteps)
+
+    def _prepare_sim(self, timesteps, timing_model, spike_trace,
+                     potential_trace, neuron_trace, perf_trace, message_trace,
+                     write_trace_headers, chunk, device_sweep, mesh) -> tuple:
+        """Before a sim() call's chunks: the mesh, the engine and device
+        sweep (built once), the chunk schedule, the trace sinks opened and
+        the state adapted to the engine. Returns (lead rank, engine, device
+        sweep, schedule, timing model)."""
         if mesh is not None and mesh is not self._mesh:
             self.set_mesh(mesh)
         lead = self._mesh is None or self._mesh.get_local_rank() == 0
@@ -885,8 +917,6 @@ class SpikingChip:
                 file=sys.stderr,
             )
             timing_model = "detailed"
-        # accepted for API parity; the device program is already parallel
-        del processing_threads, scheduler_threads
 
         need_messages = _requested(message_trace)
         perf_on = _requested(perf_trace)
@@ -932,8 +962,6 @@ class SpikingChip:
                 "counter sums on this chip; pass a smaller chunk"
             )
 
-        rd = RunData(timestep_start=self.total_timesteps + 1)
-        rd.timesteps_executed = timesteps
         # Trace objects are constructed per sim() call, matching the
         # reference Python module (src/pymodule.cpp:549-706)
         self.close()
@@ -951,20 +979,26 @@ class SpikingChip:
             self._state_mesh = self._mesh
         else:
             self._adapt_state(engine.prog)
+        return lead, engine, sweep, schedule, timing_model
 
+    def _run_chunks(self, lead: bool, engine: _Engine, sweep, schedule: list,
+                    timing_model: str, rd: RunData,
+                    heartbeat: int) -> Optional[BaseException]:
+        """A sim() call's chunks, each booked while the next one runs on
+        the device. Returns the KeyboardInterrupt that ended them early, if
+        one did."""
         t0 = self.total_timesteps + 1
         pending = None  # (host copy, t0, length): chunk k's host-side
         # processing overlaps chunk k+1's device work
         interrupted: Optional[BaseException] = None
         try:
             for length in schedule:
-                device_start = time.perf_counter()
-                outputs = self._run_chunk(engine, t0, length, sweep)
-                # on a mesh the other ranks keep no outputs: rank 0 books
-                fetch = _HostCopy(outputs) if lead else None
-                self.neuron_processing_wall += (
-                    time.perf_counter() - device_start
-                )
+                with tracing.span("sanafe.chunk",
+                                  wall="neuron_processing_wall",
+                                  steps=length):
+                    outputs = self._run_chunk(engine, t0, length, sweep)
+                    # on a mesh the other ranks keep no outputs: rank 0 books
+                    fetch = _HostCopy(outputs) if lead else None
                 # consume `pending` BEFORE processing it: if Ctrl-C lands
                 # inside the host-side sweep, the drain below must not
                 # process (and double-count) the same chunk again
@@ -985,6 +1019,13 @@ class SpikingChip:
                 pending[0], pending[1], pending[2], engine, timing_model, rd,
                 heartbeat,
             )
+        return interrupted
+
+    def _finish_sim(self, lead: bool, engine: _Engine, rd: RunData,
+                    interrupted: Optional[BaseException],
+                    timesteps: int) -> dict:
+        """After a sim() call's chunks: the trace writer drained, the
+        chip's totals and the result dict (an interruption re-raised)."""
         self._drain_trace_writer()
         if interrupted is not None:
             executed = self.total_timesteps - rd.timestep_start + 1
@@ -1029,9 +1070,13 @@ class SpikingChip:
         false; else the DAG engine when ``plan_dag`` takes the program (the
         perf trace and the device sweep included); else the step scan."""
         engine = self._engines.get(prog_key + (use_scan,))
-        if engine is not None:
-            return engine
-        start = time.perf_counter()
+        if engine is None:
+            with tracing.span("sanafe.setup.engine", wall="setup_wall"):
+                engine = self._build_engine(prog_key, use_scan)
+            self._engines[prog_key + (use_scan,)] = engine
+        return engine
+
+    def _build_engine(self, prog_key: tuple, use_scan: bool) -> _Engine:
         prog = self._programs.get(prog_key)
         if prog is None:
             record_fired_axons, record_potentials, record_spikes, record_u = (
@@ -1061,8 +1106,6 @@ class SpikingChip:
                 name=("chunk_kernel" if self.device.type == "cuda"
                       else "chunk_plain"),
             )
-        self._engines[prog_key + (use_scan,)] = engine
-        self.setup_wall += time.perf_counter() - start
         return engine
 
     def _sweep(self):
@@ -1074,12 +1117,11 @@ class SpikingChip:
                os.environ.get("SANAFE_TPU_MERGE_RING", "1024"))
         sweep = self._sweeps.get(key)
         if sweep is None:
-            start = time.perf_counter()
-            sweep = make_merge_sweep(
-                c, c.arch.ts_sync_delay_table.get(c.mapped_tiles),
-                self.dtype, self.device)
+            with tracing.span("sanafe.setup.merge_sweep", wall="setup_wall"):
+                sweep = make_merge_sweep(
+                    c, c.arch.ts_sync_delay_table.get(c.mapped_tiles),
+                    self.dtype, self.device)
             self._sweeps[key] = sweep
-            self.setup_wall += time.perf_counter() - start
         return sweep
 
     def _run_chunk(self, engine: _Engine, t0: int, length: int,
@@ -1099,15 +1141,10 @@ class SpikingChip:
                 graphs=graphs,
             )
         elif plan is None:
-            shard = prog.shard
-            before = (shard.exchange_s, shard.exchanges) if shard else None
             self._device_state, outputs = run_scan(
                 prog, self._device_state, t0, length, feeds, sweep,
                 graphs=graphs,
             )
-            if shard is not None:
-                self.exchange_wall += shard.exchange_s - before[0]
-                self.exchanges += shard.exchanges - before[1]
         if plan is None:
             if graphs is not None:
                 self.graph_replays += graphs.replays - replays
@@ -1171,40 +1208,22 @@ class SpikingChip:
         traces = self._trace_states
         prog_sync = c.arch.ts_sync_delay_table.get(c.mapped_tiles)
 
-        fetch_start = time.perf_counter()
-        buf = fetch.get()
-        nb_real = (c.n_neurons + 7) // 8
-        if "masks_packed" in buf and buf["masks_packed"].shape[2] != nb_real:
-            # a padded (sharded) program: pad slots never fire or update, so
-            # the real neurons' bytes equal the single-device planes
-            buf = dict(buf, masks_packed=np.ascontiguousarray(
-                buf["masks_packed"][:, :, :nb_real]))
-        self.message_processing_wall += time.perf_counter() - fetch_start
-        energy_start = time.perf_counter()
-        stats_rows = None  # (counters, energies) per step: the scan's
-        if engine.plan is not None:
-            outputs = decode_packed(
-                buf["packed"], packed_layout(engine.plan, length, self.dtype)
-            )
-            cs = outputs["counter_sums"]
-            packets_total = int(cs[1])
-            rd.spikes += int(cs[0])
-            rd.packets_sent += packets_total
-            self.total_messages_sent += packets_total
-            rd.neurons_updated += int(cs[3])
-            rd.neurons_fired += int(cs[4])
-            es = outputs["energy_sums"]
-            rd.synapse_energy += float(es[0])
-            rd.dendrite_energy += float(es[1])
-            rd.soma_energy += float(es[2])
-            rd.network_energy += float(es[3])
-            rd.total_energy += float(es.sum())
-            sim_times = np.array([outputs["sim_time_sum"]])
-        else:
-            outputs, stats_rows = self._book_stats(buf, rd, length)
-            # timing model
-            sim_times = stats_rows[1][:, 5]
-        self.energy_stats_wall += time.perf_counter() - energy_start
+        with tracing.span("sanafe.book.wait", wall="message_processing_wall"):
+            buf = fetch.get()
+        with tracing.span("sanafe.book.decode",
+                          wall="message_processing_wall"):
+            nb_real = (c.n_neurons + 7) // 8
+            if ("masks_packed" in buf
+                    and buf["masks_packed"].shape[2] != nb_real):
+                # a padded (sharded) program: pad slots never fire or
+                # update, so the real neurons' bytes equal the single-device
+                # planes
+                buf = dict(buf, masks_packed=np.ascontiguousarray(
+                    buf["masks_packed"][:, :, :nb_real]))
+        fired_before = rd.neurons_fired
+        with tracing.span("sanafe.book.stats", wall="energy_stats_wall"):
+            outputs, stats_rows, sim_times = self._book_chunk_stats(
+                buf, engine, rd, length)
 
         messages_by_step: list[Optional[list[list[MessageRecord]]]] = [
             None
@@ -1214,98 +1233,13 @@ class SpikingChip:
             # detailed timing already ran on the device (ops/merge_sweep.py);
             # the steps it flagged (over the message capacity, in-flight ring
             # overflow) are swept exactly on the host from their masks
-            sched_start = time.perf_counter()
-            sim_times = buf["sim_device"].astype(np.float64)
-            flagged = np.flatnonzero(buf["sweep_overflow"])
-            if len(flagged):
-                masks = np.ascontiguousarray(outputs["masks_packed"][flagged])
-                native = self._get_native_scheduler()
-                if native is not None:
-                    sim_times[flagged] = native.run_chunk_packed(masks,
-                                                                 prog_sync)
-                else:
-                    fired_axons, gen_latency = _masks_to_fired_gen(c, masks)
-                    for k, i in enumerate(flagged):
-                        msgs, self._next_mid = build_timestep_messages(
-                            c, fired_axons[k], gen_latency[k], t0 + int(i),
-                            self._next_mid,
-                        )
-                        sim_times[i] = schedule_timestep_detailed(
-                            c, msgs, prog_sync
-                        )
-                self.sweep_host_steps += len(flagged)
-            self.scheduler_wall += time.perf_counter() - sched_start
+            with tracing.span("sanafe.book.sweep", wall="scheduler_wall"):
+                sim_times = self._sweep_flagged(buf, outputs, t0, prog_sync)
         elif timing_model in ("detailed", "cycle") or need_messages:
-            masks = outputs["masks_packed"]  # [T, 2, nbytes]
-            sched_start = time.perf_counter()
-            native = self._get_native_scheduler()
-            if timing_model == "cycle" and native is not None:
-                # flit-level cmesh NoC (the reference's Booksim2 tier)
-                sim_times = native.run_chunk_cycle(masks, prog_sync)
-                if need_messages:
-                    # message records (delays per the detailed sweep) are
-                    # still produced for the trace surface
-                    fired_axons, gen_latency = _masks_to_fired_gen(c, masks)
-                    for i in range(length):
-                        msgs, self._next_mid = build_timestep_messages(
-                            c, fired_axons[i], gen_latency[i], t0 + i,
-                            self._next_mid,
-                        )
-                        schedule_timestep_simple_messages(msgs)
-                        messages_by_step[i] = msgs
-            elif timing_model == "detailed" and not need_messages and (
-                native is not None
-            ):
-                # the C++ scheduler consumes the packed masks directly,
-                # OpenMP-parallel across the chunk's timesteps
-                sim_times = native.run_chunk_packed(masks, prog_sync)
-            else:
-                fired_axons, gen_latency = _masks_to_fired_gen(c, masks)
-                if timing_model == "detailed" and native is not None:
-                    # a stream-only message trace is written straight from
-                    # the native field arrays (byte-identical CSV)
-                    msg_state = traces["message"]
-                    fast_stream = (
-                        msg_state.sink.stream is not None
-                        and msg_state.memory is None
-                    )
-                    from .native import sort_message_trace_order
-
-                    detailed_times = np.zeros(length)
-                    for i in range(length):
-                        sim_t, fields = native.run_timestep_trace(
-                            fired_axons[i], gen_latency[i], prog_sync
-                        )
-                        detailed_times[i] = sim_t
-                        if fast_stream:
-                            self._next_mid = write_message_rows_fast(
-                                c, fields, t0 + i, self._next_mid,
-                                msg_state.sink, sort_message_trace_order,
-                            )
-                        else:
-                            msgs, self._next_mid = records_from_native(
-                                c, fields, t0 + i, self._next_mid,
-                            )
-                            messages_by_step[i] = msgs
-                    sim_times = detailed_times
-                else:
-                    # pure-Python sweep (exact same algorithm)
-                    detailed_times = np.zeros(length)
-                    for i in range(length):
-                        msgs, self._next_mid = build_timestep_messages(
-                            c, fired_axons[i], gen_latency[i], t0 + i,
-                            self._next_mid,
-                        )
-                        if timing_model == "detailed":
-                            detailed_times[i] = schedule_timestep_detailed(
-                                c, msgs, prog_sync
-                            )
-                        else:
-                            schedule_timestep_simple_messages(msgs)
-                        messages_by_step[i] = msgs
-                    if timing_model == "detailed":
-                        sim_times = detailed_times
-            self.scheduler_wall += time.perf_counter() - sched_start
+            with tracing.span("sanafe.book.sweep", wall="scheduler_wall"):
+                sim_times = self._sweep_chunk(
+                    outputs, t0, length, timing_model, need_messages,
+                    prog_sync, messages_by_step, sim_times)
         # sequential accumulation: the reference folds one retired timestep
         # at a time into the run total (src/chip.cpp:410-438)
         acc = rd.sim_time
@@ -1313,14 +1247,148 @@ class SpikingChip:
             acc += v
         rd.sim_time = acc
 
-        self._write_traces(outputs, t0, length, messages_by_step)
-        if stats_rows is not None and traces["perf"].sink.enabled:
-            self._write_perf_rows(outputs, t0, length, *stats_rows,
-                                  sim_times)
+        with tracing.span("sanafe.book.traces") as booked:
+            booked.fields["spikes"] = rd.neurons_fired - fired_before
+            self._write_traces(outputs, t0, length, messages_by_step)
+            if stats_rows is not None and traces["perf"].sink.enabled:
+                self._write_perf_rows(outputs, t0, length, *stats_rows,
+                                      sim_times)
         if heartbeat:
             for t in range(t0, t0 + length):
                 if t % heartbeat == 0:
                     print(f"*** Time-step {t} ***")
+
+    def _book_chunk_stats(self, buf: dict, engine: _Engine, rd: RunData,
+                          length: int) -> tuple:
+        """A chunk's counters and energies booked into RunData: (the
+        outputs, the scan's per-step (counters, energies) or None, the
+        simple-timing sim_times)."""
+        if engine.plan is None:
+            outputs, stats_rows = self._book_stats(buf, rd, length)
+            # timing model
+            return outputs, stats_rows, stats_rows[1][:, 5]
+        outputs = decode_packed(
+            buf["packed"], packed_layout(engine.plan, length, self.dtype)
+        )
+        cs = outputs["counter_sums"]
+        packets_total = int(cs[1])
+        rd.spikes += int(cs[0])
+        rd.packets_sent += packets_total
+        self.total_messages_sent += packets_total
+        rd.neurons_updated += int(cs[3])
+        rd.neurons_fired += int(cs[4])
+        es = outputs["energy_sums"]
+        rd.synapse_energy += float(es[0])
+        rd.dendrite_energy += float(es[1])
+        rd.soma_energy += float(es[2])
+        rd.network_energy += float(es[3])
+        rd.total_energy += float(es.sum())
+        return outputs, None, np.array([outputs["sim_time_sum"]])
+
+    def _sweep_flagged(self, buf: dict, outputs: dict, t0: int,
+                       prog_sync) -> np.ndarray:
+        """The device sweep's sim_times, with the steps it flagged swept
+        on the host."""
+        c = self.compiled
+        sim_times = buf["sim_device"].astype(np.float64)
+        flagged = np.flatnonzero(buf["sweep_overflow"])
+        if len(flagged):
+            masks = np.ascontiguousarray(outputs["masks_packed"][flagged])
+            native = self._get_native_scheduler()
+            if native is not None:
+                sim_times[flagged] = native.run_chunk_packed(masks,
+                                                             prog_sync)
+            else:
+                fired_axons, gen_latency = _masks_to_fired_gen(c, masks)
+                for k, i in enumerate(flagged):
+                    msgs, self._next_mid = build_timestep_messages(
+                        c, fired_axons[k], gen_latency[k], t0 + int(i),
+                        self._next_mid,
+                    )
+                    sim_times[i] = schedule_timestep_detailed(
+                        c, msgs, prog_sync
+                    )
+            self.sweep_host_steps += len(flagged)
+        return sim_times
+
+    def _sweep_chunk(self, outputs: dict, t0: int, length: int,
+                     timing_model: str, need_messages: bool, prog_sync,
+                     messages_by_step: list,
+                     sim_times: np.ndarray) -> np.ndarray:
+        """A chunk's timing sweep on the host (detailed or cycle timing, or
+        the messages of a message trace): the steps' sim_times (the simple
+        model's ``sim_times`` where it keeps them), each step's message
+        records put in ``messages_by_step``."""
+        c = self.compiled
+        masks = outputs["masks_packed"]  # [T, 2, nbytes]
+        native = self._get_native_scheduler()
+        if timing_model == "cycle" and native is not None:
+            # flit-level cmesh NoC (the reference's Booksim2 tier)
+            sim_times = native.run_chunk_cycle(masks, prog_sync)
+            if need_messages:
+                # message records (delays per the detailed sweep) are
+                # still produced for the trace surface
+                fired_axons, gen_latency = _masks_to_fired_gen(c, masks)
+                for i in range(length):
+                    msgs, self._next_mid = build_timestep_messages(
+                        c, fired_axons[i], gen_latency[i], t0 + i,
+                        self._next_mid,
+                    )
+                    schedule_timestep_simple_messages(msgs)
+                    messages_by_step[i] = msgs
+        elif timing_model == "detailed" and not need_messages and (
+            native is not None
+        ):
+            # the C++ scheduler consumes the packed masks directly,
+            # OpenMP-parallel across the chunk's timesteps
+            sim_times = native.run_chunk_packed(masks, prog_sync)
+        else:
+            fired_axons, gen_latency = _masks_to_fired_gen(c, masks)
+            if timing_model == "detailed" and native is not None:
+                # a stream-only message trace is written straight from
+                # the native field arrays (byte-identical CSV)
+                msg_state = self._trace_states["message"]
+                fast_stream = (
+                    msg_state.sink.stream is not None
+                    and msg_state.memory is None
+                )
+                from .native import sort_message_trace_order
+
+                detailed_times = np.zeros(length)
+                for i in range(length):
+                    sim_t, fields = native.run_timestep_trace(
+                        fired_axons[i], gen_latency[i], prog_sync
+                    )
+                    detailed_times[i] = sim_t
+                    if fast_stream:
+                        self._next_mid = write_message_rows_fast(
+                            c, fields, t0 + i, self._next_mid,
+                            msg_state.sink, sort_message_trace_order,
+                        )
+                    else:
+                        msgs, self._next_mid = records_from_native(
+                            c, fields, t0 + i, self._next_mid,
+                        )
+                        messages_by_step[i] = msgs
+                sim_times = detailed_times
+            else:
+                # pure-Python sweep (exact same algorithm)
+                detailed_times = np.zeros(length)
+                for i in range(length):
+                    msgs, self._next_mid = build_timestep_messages(
+                        c, fired_axons[i], gen_latency[i], t0 + i,
+                        self._next_mid,
+                    )
+                    if timing_model == "detailed":
+                        detailed_times[i] = schedule_timestep_detailed(
+                            c, msgs, prog_sync
+                        )
+                    else:
+                        schedule_timestep_simple_messages(msgs)
+                    messages_by_step[i] = msgs
+                if timing_model == "detailed":
+                    sim_times = detailed_times
+        return sim_times
 
     def _book_stats(self, outputs: dict, rd: RunData,
                     length: int) -> tuple:

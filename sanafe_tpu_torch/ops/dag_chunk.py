@@ -52,6 +52,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from .. import tracing
 from ..models import SOMA_MODEL_INPUT, SOMA_MODEL_LIF
 from .conv import conv_deliver, conv_results, full_float32_matmul
 from .device_sweep import unpack_masks
@@ -432,8 +433,10 @@ class DagGraphs:
     chunk. A length is captured at its first chunk (``ops/graphs.py:
     capture``: that chunk runs eagerly on a side stream, its results
     kept); every graph draws on one memory pool. A capture or replay error
-    raises. The launch counters stay true (``ops/graphs.py``); ``replays``
-    counts the replays.
+    raises. A chunk is a ``sanafe.replay`` span (``sanafe.capture`` at its
+    capture) with the children ``sanafe.replay.state``, ``.launch`` and
+    ``.outputs`` (``tracing.py``). The launch counters stay true
+    (``ops/graphs.py``); ``replays`` counts the replays.
 
     On the CPU the chunks run eagerly, in the same form (the same buffers
     and copies), so the CPU tests run the code the card captures. Built
@@ -453,18 +456,26 @@ class DagGraphs:
     def run(self, state: dict, t0: int, length: int):
         """``length`` steps from step ``t0``: the state after them and the
         named outputs (``make_dag_body``), in tensors of their own."""
-        if self.state is None:
-            self.state = {key: torch.empty_like(value)
-                          for key, value in state.items()}
-        if _layout(state) != _layout(self.state):
-            raise ValueError("DagGraphs: the state does not match the layout "
-                             "its graphs were built for")
-        for key, value in state.items():
-            self.state[key].copy_(value)
-        self.t.fill_(t0)
-        new_state, outputs = self._chunk(length)
-        return ({key: value.clone() for key, value in new_state.items()},
-                {key: value.clone() for key, value in outputs.items()})
+        first = self.capture and length not in self.chunks
+        with tracing.span("sanafe.capture" if first else "sanafe.replay",
+                          engine="dag", steps=length):
+            with tracing.span("sanafe.replay.state"):
+                if self.state is None:
+                    self.state = {key: torch.empty_like(value)
+                                  for key, value in state.items()}
+                if _layout(state) != _layout(self.state):
+                    raise ValueError("DagGraphs: the state does not match "
+                                     "the layout its graphs were built for")
+                for key, value in state.items():
+                    self.state[key].copy_(value)
+                self.t.fill_(t0)
+            with tracing.span("sanafe.replay.launch"):
+                new_state, outputs = self._chunk(length)
+            with tracing.span("sanafe.replay.outputs"):
+                return ({key: value.clone()
+                         for key, value in new_state.items()},
+                        {key: value.clone()
+                         for key, value in outputs.items()})
 
     def _body(self, length: int) -> tuple:
         return self.body(dict(self.state), self.t, length)

@@ -44,6 +44,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from .. import tracing
 from .conv import full_float32_matmul
 from .dag_chunk import rollup_stats
 from .device_sweep import unpack_masks
@@ -88,8 +89,10 @@ class ScanGraphs:
     block size is captured at its first use: that block runs eagerly on a
     side stream first (the warm-up, whose results are kept), then is
     captured (``ops/graphs.py:capture``). A capture or replay error
-    raises. The launch counters stay true (``ops/graphs.py``); ``replays``
-    counts the replays.
+    raises. Each block is a ``sanafe.replay`` span (``sanafe.capture`` at
+    its capture) with the children ``sanafe.replay.feeds``, ``.launch``
+    and ``.outputs`` (``tracing.py``). The launch counters stay true
+    (``ops/graphs.py``); ``replays`` counts the replays.
 
     On the CPU the blocks run eagerly, in the same form (the same buffers
     and copies), so the CPU tests run the code the card captures. Built
@@ -117,14 +120,21 @@ class ScanGraphs:
         outputs: dict[str, torch.Tensor] = {}
         for lo in range(0, length, GRAPH_UNROLL):
             count = min(GRAPH_UNROLL, length - lo)
-            for key, buf in self.feeds.items():
-                buf[:count].copy_(feeds[key][lo:lo + count])
-            for key, value in self._block(count).items():
-                if key not in outputs:
-                    outputs[key] = torch.empty(
-                        (length,) + tuple(value.shape[1:]),
-                        dtype=value.dtype, device=value.device)
-                outputs[key][lo:lo + count].copy_(value)
+            first = self.capture and count not in self.blocks
+            with tracing.span("sanafe.capture" if first else "sanafe.replay",
+                              engine="scan", steps=count):
+                with tracing.span("sanafe.replay.feeds"):
+                    for key, buf in self.feeds.items():
+                        buf[:count].copy_(feeds[key][lo:lo + count])
+                with tracing.span("sanafe.replay.launch"):
+                    block = self._block(count)
+                with tracing.span("sanafe.replay.outputs"):
+                    for key, value in block.items():
+                        if key not in outputs:
+                            outputs[key] = torch.empty(
+                                (length,) + tuple(value.shape[1:]),
+                                dtype=value.dtype, device=value.device)
+                        outputs[key][lo:lo + count].copy_(value)
         return {key: value.clone() for key, value in self.state.items()}, \
             outputs
 

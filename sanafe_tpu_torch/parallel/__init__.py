@@ -52,12 +52,12 @@ are built from, pads them too.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Optional
 
 import numpy as np
 import torch
 
+from .. import tracing
 from ..compile import CompiledChip
 from ..models import SOMA_MODEL_NONE
 
@@ -276,8 +276,9 @@ class Shard:
     path read them: per-neuron arrays cut to ``[lo, hi)``, the edges into
     those neurons (``edge_dest_slot`` counted from ``lo``), the feed slot
     lists cut likewise; the rest replicated. ``feed_cols`` picks each host
-    feed's columns of those slots. ``exchange_s`` and ``exchanges`` add up
-    the host time and number of the collectives."""
+    feed's columns of those slots. Each collective is a ``sanafe.exchange``
+    span, which adds its host time and 1 to the calling chip's
+    ``exchange_wall`` and ``exchanges`` (``tracing.py``)."""
 
     mesh: object
     group: object
@@ -286,17 +287,14 @@ class Shard:
     n: int
     arrays: dict
     feed_cols: dict
-    exchange_s: float = 0.0
-    exchanges: int = 0
 
     def _sum(self, buf: torch.Tensor) -> torch.Tensor:
         """``buf`` summed over the ranks, in place, timed."""
         import torch.distributed as dist
 
-        start = time.perf_counter()
-        dist.all_reduce(buf, group=self.group)
-        self.exchange_s += time.perf_counter() - start
-        self.exchanges += 1
+        with tracing.span("sanafe.exchange", wall="exchange_wall",
+                          count="exchanges"):
+            dist.all_reduce(buf, group=self.group)
         return buf
 
     def combine(self, x: torch.Tensor) -> torch.Tensor:
