@@ -105,6 +105,7 @@ from .trace import (
     fmt_e,
     fmt_g,
     message_to_dict,
+    spike_lists,
     write_message_header,
     write_message_row,
     write_neuron_trace_header,
@@ -430,7 +431,7 @@ class SpikingChip:
         self._trace_writer: Optional[_AsyncTraceWriter] = None
         self._spike_labels = None
         self._spike_blob = None
-        self._spike_addresses = None
+        self._spike_rows_maps = None
         self._next_mid = 0
         # scale-out (sim(mesh=...)): the mesh, the compiled chip padded to a
         # multiple of its size, and the mesh the live state is cut for (None:
@@ -497,11 +498,11 @@ class SpikingChip:
             self.compiled = compile_chip(self.arch, net)
             self._device_state = None
         self._invalidate_programs()
-        # spike-trace caches are keyed on label COUNT; a different network
-        # with the same number of logged neurons would stream stale labels
+        # the spike-trace caches belong to the network: a different one
+        # with the same number of logged neurons would reuse stale labels
         self._spike_labels = None
         self._spike_blob = None
-        self._spike_addresses = None
+        self._spike_rows_maps = None
 
     def _merged_groups(self) -> set:
         return {name for loaded in self._nets for name in loaded.groups}
@@ -1249,7 +1250,10 @@ class SpikingChip:
 
         with tracing.span("sanafe.book.traces") as booked:
             booked.fields["spikes"] = rd.neurons_fired - fired_before
-            self._write_traces(outputs, t0, length, messages_by_step)
+            source = self._write_traces(outputs, t0, length,
+                                        messages_by_step)
+            if source is not None:
+                booked.fields["source"] = source
             if stats_rows is not None and traces["perf"].sink.enabled:
                 self._write_perf_rows(outputs, t0, length, *stats_rows,
                                       sim_times)
@@ -1397,8 +1401,9 @@ class SpikingChip:
         energies from the device sums or, on the float64 parity path with
         the perf trace, replayed in the reference's float64 accumulation
         order (ops/exact_energy.py). Returns the outputs, with the spike
-        log derived from the fired masks when the scan left it out, and
-        (counters [T, 5], energies [T, 6])."""
+        log derived from the fired masks when the scan left it out and a
+        spikes.csv stream needs it, and (counters [T, 5], energies
+        [T, 6])."""
         c = self.compiled
         stats = np.asarray(outputs["stats"], dtype=np.float64)
         counters = np.round(stats[:, :5]).astype(np.int64)
@@ -1434,7 +1439,7 @@ class SpikingChip:
             rd.soma_energy += float(energies[:, 2].sum())
             rd.network_energy += float(energies[:, 3].sum())
             rd.total_energy += float(energies[:, 4].sum())
-        if (self._trace_states["spike"].sink.enabled
+        if (self._trace_states["spike"].sink.stream is not None
                 and "spike_log_packed" not in outputs and masks is not None):
             fired_bits = np.unpackbits(masks[:, 0, :], axis=1)
             outputs = dict(outputs, spike_log_packed=np.packbits(
@@ -1492,33 +1497,31 @@ class SpikingChip:
                     perf_state.memory.data.setdefault(key, []).append(value)
 
     def _write_traces(self, outputs: dict, t0: int, length: int,
-                      messages_by_step: list) -> None:
+                      messages_by_step: list) -> Optional[str]:
+        """A chunk's spike, potential, neuron and message rows. Returns
+        the plane the in-memory spike trace was read from (``"masks"`` or
+        ``"spike_log"``), None without one."""
         c = self.compiled
         traces = self._trace_states
         spike_state = traces["spike"]
-        if spike_state.sink.enabled and spike_state.memory is None and (
-            spike_state.sink.stream
-            and self._write_spike_rows_native(outputs, t0, spike_state.sink)
+        source = None
+        if spike_state.memory is not None:
+            source = self._book_spike_memory(outputs, spike_state.memory)
+        elif spike_state.sink.stream is not None and not (
+            self._write_spike_rows_native(outputs, t0, spike_state.sink)
         ):
-            pass  # rows formatted in C and written (byte-identical)
-        elif spike_state.sink.enabled:
+            # the native formatter is unavailable: the same rows in Python
             spikes_log = np.unpackbits(
                 outputs["spike_log_packed"], axis=1
             )[:, : len(c.spike_log_slots)]
             steps_idx, rows_idx = np.nonzero(spikes_log)
-            if spike_state.sink.stream and len(rows_idx):
+            if len(rows_idx):
                 labels = self._spike_label_cache()
                 lines = "".join(
                     f"{labels[j]},{t0 + i}\n"
                     for i, j in zip(steps_idx, rows_idx)
                 )
                 self._submit(spike_state.sink, lines)
-            if spike_state.memory is not None:
-                addresses = self._spike_address_cache()
-                per_step: list[list] = [[] for _ in range(length)]
-                for i, j in zip(steps_idx, rows_idx):
-                    per_step[i].append(addresses[j])
-                spike_state.memory.data.extend(per_step)
         for key, log_key in (("potential", "potential_log"),
                              ("neuron", "u_log")):
             state = traces[key]
@@ -1570,6 +1573,7 @@ class SpikingChip:
                     message_state.memory.data.append(
                         [message_to_dict(m) for m in flat]
                     )
+        return source
 
     def _submit(self, sink, data) -> None:
         if self._trace_writer is not None:
@@ -1627,17 +1631,42 @@ class SpikingChip:
             self._submit(sink, text)
         return True
 
-    def _spike_address_cache(self) -> list:
-        addresses = self._spike_addresses
-        if addresses is None or len(addresses) != len(
-            self.compiled.spike_log_labels
-        ):
-            addresses = [
-                NeuronAddress(group, offset)
-                for group, offset in self.compiled.spike_log_labels
-            ]
-            self._spike_addresses = addresses
-        return addresses
+    def _book_spike_memory(self, outputs: dict, trace: SpikeTrace) -> str:
+        """Append a chunk's steps to the in-memory spike trace, a list of
+        NeuronAddress a step in log order, from one pass in C
+        (``native.spike_rows``) over the program's spike log where the
+        outputs hold one, else over the fired masks' plane. Returns which
+        it read."""
+        from .native import spike_rows
+
+        addresses, row_of_slot, row_of_row = self._spike_maps()
+        if "spike_log_packed" in outputs:
+            source, plane, row_of_bit = (
+                "spike_log", outputs["spike_log_packed"], row_of_row)
+        else:
+            source, plane, row_of_bit = (
+                "masks", outputs["masks_packed"][:, 0, :], row_of_slot)
+        counts, rows = spike_rows(plane, len(row_of_bit), row_of_bit)
+        trace.data.extend(spike_lists(addresses, counts, rows))
+        return source
+
+    def _spike_maps(self) -> tuple:
+        """The logged neurons' NeuronAddress objects in log order (an
+        object array), each neuron slot's log row (-1: not logged) and the
+        identity map of the log rows; built once a loaded network."""
+        maps = self._spike_rows_maps
+        if maps is None:
+            c = self.compiled
+            n_log = len(c.spike_log_slots)
+            addresses = np.empty(n_log, dtype=object)
+            addresses[:] = [NeuronAddress(group, offset)
+                            for group, offset in c.spike_log_labels]
+            row_of_slot = np.full(c.n_neurons, -1, dtype=np.int32)
+            row_of_slot[c.spike_log_slots] = np.arange(n_log)
+            maps = (addresses, row_of_slot,
+                    np.arange(n_log, dtype=np.int32))
+            self._spike_rows_maps = maps
+        return maps
 
     def _build_feeds(self, length: int) -> dict:
         """Per-chunk host-generated stochastic inputs: TrueNorth LFSR draws

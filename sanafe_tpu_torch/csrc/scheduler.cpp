@@ -1788,4 +1788,50 @@ int64_t count_mask_bits(const uint8_t *bits, int64_t row_stride, int32_t T,
     return total;
 }
 
+// sanafe_tpu_torch only: begin spike_rows
+// The in-memory spike trace's rows, read from a packed bit plane: `bits`
+// holds T rows (numpy packbits MSB-first layout) spaced `row_stride` bytes
+// apart, `n_bytes` wide. Bit b < n_bits maps to spike-log row
+// row_of_bit[b] (-1: none), every row below n_rows; bits past n_bits (pad
+// bits) map to none. The plane is read 8 bytes a load, and only its set
+// bits are visited. For each step the rows go to `rows` in ascending
+// order (a bitmap over the rows, then its set bits), their number to
+// counts[t]. Returns the rows written, or -1 if `cap` would overflow.
+int64_t spike_rows(const uint8_t *bits, int64_t row_stride, int32_t T,
+                   int32_t n_bytes, int32_t n_bits,
+                   const int32_t *row_of_bit, int32_t n_rows,
+                   int64_t *counts, int32_t *rows, int64_t cap) {
+    const int32_t n_scan = std::min<int32_t>(n_bytes, (n_bits + 7) / 8);
+    std::vector<uint64_t> seen((static_cast<size_t>(n_rows) + 63) / 64);
+    int64_t pos = 0;
+    for (int32_t t = 0; t < T; ++t) {
+        const uint8_t *row = bits + t * row_stride;
+        std::fill(seen.begin(), seen.end(), 0);
+        for (int32_t i = 0; i < n_scan; i += 8) {
+            uint64_t w = 0;  // byte i + j in bits 8j..8j+7 (little endian)
+            std::memcpy(&w, row + i,
+                        static_cast<size_t>(std::min(8, n_scan - i)));
+            for (; w != 0; w &= w - 1) {
+                const int p = __builtin_ctzll(w);
+                // packbits' order: the byte's MSB is its first bit
+                const int32_t b = (i + (p >> 3)) * 8 + (7 - (p & 7));
+                if (b >= n_bits) continue;
+                const int32_t r = row_of_bit[b];
+                if (r >= 0) seen[r >> 6] |= uint64_t{1} << (r & 63);
+            }
+        }
+        const int64_t start = pos;
+        for (size_t w = 0; w < seen.size(); ++w) {
+            for (uint64_t m = seen[w]; m != 0; m &= m - 1) {
+                if (pos >= cap) return -1;
+                rows[pos++] = static_cast<int32_t>(
+                    w * 64 + static_cast<size_t>(__builtin_ctzll(m)));
+            }
+        }
+        counts[t] = pos - start;
+    }
+    return pos;
+}
+// sanafe_tpu_torch only: end spike_rows
+
 }  // extern "C"

@@ -119,6 +119,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.count_mask_bits.argtypes = [
         u8p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
     ]
+    lib.spike_rows.restype = ctypes.c_int64
+    lib.spike_rows.argtypes = [
+        u8p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+        i32p, ctypes.c_int32, i64p, i32p, ctypes.c_int64,
+    ]
     _lib = lib
     return lib
 
@@ -164,6 +169,39 @@ def format_spike_rows(
         return None
     data = out[:n].tobytes()
     return data if as_bytes else data.decode("utf-8")
+
+
+def spike_rows(packed_bits: "np.ndarray", n_bits: int,
+               row_of_bit: "np.ndarray") -> tuple:
+    """The spike-log rows set in a ``[T, nbytes]`` uint8 bit plane
+    (``np.packbits`` order, MSB first; its rows may lie apart, as the fired
+    half of ``masks_packed[:, 0, :]``): ``(counts [T], rows [K])``, the
+    rows ordered by step, then by row, with ``counts[t]`` of them in step
+    ``t``. Bit ``b`` (below ``n_bits``) maps to row ``row_of_bit[b]``, an
+    int32 map, or to none where that is -1; bits at or past ``n_bits`` and
+    past the map (pad bits) map to none. Raises ``NativeUnavailable``
+    without the native library."""
+    lib = get_library()
+    T, n_bytes = packed_bits.shape
+    if packed_bits.dtype != np.uint8 or (T and packed_bits.strides[1] != 1):
+        packed_bits = np.ascontiguousarray(packed_bits, dtype=np.uint8)
+    row_of_bit = np.ascontiguousarray(row_of_bit, dtype=np.int32)
+    n_bits = min(int(n_bits), len(row_of_bit), 8 * n_bytes)
+    n_rows = int(row_of_bit.max(initial=-1)) + 1
+    counts = np.zeros(T, dtype=np.int64)
+    cap = int(lib.count_mask_bits(
+        _ptr(packed_bits, ctypes.c_uint8), np.int64(packed_bits.strides[0]),
+        np.int32(T), np.int32(n_bytes))) if T else 0
+    rows = np.empty(cap, dtype=np.int32)
+    n = lib.spike_rows(
+        _ptr(packed_bits, ctypes.c_uint8), np.int64(packed_bits.strides[0]),
+        np.int32(T), np.int32(n_bytes), np.int32(n_bits),
+        _ptr(row_of_bit, ctypes.c_int32), np.int32(n_rows),
+        counts.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        _ptr(rows, ctypes.c_int32), np.int64(cap))
+    if n < 0:
+        raise RuntimeError("spike_rows: more rows than set bits")
+    return counts, rows[:n]
 
 
 def serial_keyed_sum(values: "np.ndarray", keys: "np.ndarray",

@@ -14,6 +14,8 @@ from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Any, Optional
 
+import numpy as np
+
 
 def fmt_g(value: float) -> str:
     """C++ default ostream double formatting (6 significant digits)."""
@@ -116,6 +118,19 @@ class SpikeTrace:
 
     def __getitem__(self, i):
         return self.data[i]
+
+
+def spike_lists(addresses: np.ndarray, counts: np.ndarray,
+                rows: np.ndarray) -> list[list]:
+    """``native.spike_rows``'s ``(counts, rows)`` as one list a step of
+    ``addresses[row]``, an object array (the shared objects themselves,
+    not copies)."""
+    flat = addresses[rows].tolist()
+    lists, start = [], 0
+    for end in np.cumsum(counts).tolist():
+        lists.append(flat[start:end])
+        start = end
+    return lists
 
 
 @dataclass

@@ -27,7 +27,9 @@ work (``steps``, ``spikes``), as its fields. The names::
       sanafe.book.decode            the rest of the outputs' decoding (the same)
       sanafe.book.stats             counters and energies (energy_stats_wall)
       sanafe.book.sweep             the timing sweep (scheduler_wall)
-      sanafe.book.traces            spikes; the trace and perf rows
+      sanafe.book.traces            spikes, source (the plane the in-memory
+                                    spike trace was read from: masks or
+                                    spike_log); the trace and perf rows
       sanafe.sim.finish             the writer drained, the totals, the result
     sanafe.sweep.run                steps, samples
       sanafe.chunk                  steps

@@ -287,7 +287,8 @@ print("spikes", result["spikes"])
 def test_native_source_copy_matches_sanafe_tpu(name):
     """The port compiles its own copy of the native scheduler source. The
     copy of scheduler.cpp differs from sanafe_tpu's by one added
-    ``#include <cstdio>`` line and cycle_noc.h is identical (exact), so a
+    ``#include <cstdio>`` line and the port's own ``spike_rows`` (one block
+    between its marker lines), and cycle_noc.h is identical (exact), so a
     change to sanafe_tpu's source shows here and not as silent drift; and
     native.py reads no path under sanafe_tpu/."""
     import difflib
@@ -297,9 +298,17 @@ def test_native_source_copy_matches_sanafe_tpu(name):
     ours = REPO / "sanafe_tpu_torch" / "csrc" / name
     theirs = REPO / "sanafe_tpu" / "native_src" / name
     assert native._SRC == REPO / "sanafe_tpu_torch" / "csrc" / "scheduler.cpp"
+    lines = ours.read_text().splitlines()
+    if name == "scheduler.cpp":
+        begin = lines.index("// sanafe_tpu_torch only: begin spike_rows")
+        end = lines.index("// sanafe_tpu_torch only: end spike_rows")
+        assert any(line.startswith("int64_t spike_rows(")
+                   for line in lines[begin:end])
+        # the block and the blank line before it
+        lines = lines[:begin - 1] + lines[end + 1:]
     diff = [
         line for line in difflib.ndiff(
-            theirs.read_text().splitlines(), ours.read_text().splitlines())
+            theirs.read_text().splitlines(), lines)
         if line[:2] in ("+ ", "- ")
     ]
     expected = ["+ #include <cstdio>"] if name == "scheduler.cpp" else []
