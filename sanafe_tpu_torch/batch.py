@@ -40,8 +40,10 @@ elsewhere, so the gather is exact).
 Overrides use sanafe_tpu's array names and layouts, so one override dict
 drives both packages: a ``conv_kernel_i`` override is the HWIO filter
 with the all-ones count channel last, permuted to the port's OIHW here
-(``ops/conv.py:hwio_to_oihw``); a ``block_counts`` override is repacked into
-per-sample arrival planes where the program delivers through the kernel.
+(``ops/conv.py:hwio_to_oihw``). Where the program delivers through the
+kernel, which holds the blocks' live rows alone, ``block_weights`` and
+``block_counts`` overrides (the dense blocks) are compacted to the rows live
+in any sample, the counts packed into arrival words (``swept_rows``).
 
 Example::
 
@@ -64,7 +66,9 @@ import torch
 from . import tracing
 from .ops.conv import hwio_to_oihw
 from .ops.delivery import (
-    build_live_rows,
+    LiveRows,
+    compact_blocks,
+    dense_blocks,
     pack_arrival_plane,
     plan_delivery_batch,
 )
@@ -117,6 +121,23 @@ def expand_group_values(
                 )
             out[:, slots] = values
     return out
+
+
+def swept_rows(block, weights=None, counts=None) -> tuple:
+    """(live_rows, weights ``[..., count, tile]``, arrivals ``[..., count,
+    words]``) on the host for a kernel-delivery program's ``block`` (its
+    live rows alone) under per-sample overrides in sanafe_tpu's dense
+    layout: ``weights`` ``[B, n_blocks, tile, tile]`` and ``counts`` (int8
+    edge counts, packed here) of the same shape, either None where not
+    swept (the program's blocks then, laid out dense again). The rows
+    listed are those live in any sample (``build_live_rows``)."""
+    held_w, held_a = dense_blocks(
+        block.weights.cpu() if weights is None else None,
+        block.arrivals.cpu() if counts is None else None,
+        block.live_rows, block.n_blocks, block.tile)
+    arrivals = held_a if counts is None else torch.stack(
+        [pack_arrival_plane(c) for c in counts])
+    return compact_blocks(held_w if weights is None else weights, arrivals)
 
 
 class ParameterSweep:
@@ -193,8 +214,14 @@ class ParameterSweep:
         if not overrides:
             raise ValueError("no overrides given; use SpikingChip.sim()")
         known = dict(prog.arrays)
+        blocks = {}  # overrides of the blocks: sanafe_tpu's dense layout
         if prog.kernel_delivery:
-            # sanafe_tpu's name for the edge counts the kernel reads packed
+            # the program holds the live rows alone; the blocks are swept
+            # in sanafe_tpu's layout, counts included (the kernel reads
+            # them packed), and compacted to the rows live in any sample
+            dense = (prog.block.n_blocks, prog.block.tile, prog.block.tile)
+            blocks = {"block_weights": (dense, prog.dtype),
+                      "block_counts": (dense, torch.int8)}
             known["block_counts"] = None
         B = None
         self.arrays = dict(prog.arrays)
@@ -209,9 +236,8 @@ class ParameterSweep:
             if not values.flags.writeable:  # e.g. np.broadcast_to's view
                 values = values.copy()
             values = torch.as_tensor(values)
-            if name == "block_counts":
-                orig_shape = tuple(prog.block.weights.shape)
-                dtype_of = torch.int8
+            if name in blocks:
+                orig_shape, dtype_of = blocks[name]
             else:
                 orig = prog.arrays[name]
                 orig_shape, dtype_of = tuple(orig.shape), orig.dtype
@@ -242,24 +268,28 @@ class ParameterSweep:
                     f" ({world} devices)")
             lo, hi = rank * B // world, (rank + 1) * B // world
         self.samples = (lo, hi)  # this rank's samples
+        dense = {}
         for name, (values, dtype_of) in swept.items():
-            values = values[lo:hi].to(device=self.device, dtype=dtype_of)
-            if name == "block_counts" and prog.kernel_delivery:
-                self.arrays["block_arrivals"] = torch.stack(
-                    [pack_arrival_plane(v) for v in values])
+            if name in blocks:  # kept on the host until compacted
+                dense[name] = values[lo:hi].to(dtype=dtype_of)
             else:
-                self.arrays[name] = values
+                self.arrays[name] = values[lo:hi].to(device=self.device,
+                                                     dtype=dtype_of)
         if prog.kernel_delivery:
             # the rows the kernel reads: those with an edge in any sample
-            # (the program's own list where no sample overrides the
-            # blocks); and the kernel's operands, checked once for every step
-            if "block_weights" in swept or "block_counts" in swept:
-                live = build_live_rows(self.arrays["block_weights"],
-                                       self.arrays["block_arrivals"])
-            else:
-                live = prog.block.plan.live_rows
-            self.arrays["block_live_rows"] = live
+            # (the program's own where no sample overrides the blocks);
+            # and the kernel's operands, checked once for every step
             blk = prog.block
+            live = blk.live_rows
+            if dense:
+                live, weights, arrivals = swept_rows(
+                    blk, dense.get("block_weights"),
+                    dense.get("block_counts"))
+                live = LiveRows(live.rows.to(self.device),
+                                live.offsets.to(self.device), live.count)
+                self.arrays["block_weights"] = weights.to(self.device)
+                self.arrays["block_arrivals"] = arrivals.to(self.device)
+            self.arrays["block_live_rows"] = live
             self.arrays["block_batch_plan"] = plan_delivery_batch(
                 hi - lo, self.arrays["block_weights"],
                 self.arrays["block_arrivals"], blk.src_tiles,

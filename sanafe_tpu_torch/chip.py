@@ -416,6 +416,9 @@ class SpikingChip:
         self.message_processing_wall = 0.0
         self.scheduler_wall = 0.0
         self.energy_stats_wall = 0.0
+        # the part of setup_wall that built programs' block deliveries (the
+        # sanafe.setup.delivery spans)
+        self.delivery_build_wall = 0.0
         # steps of the device-sweep tier the host swept instead (over the
         # message capacity, or the in-flight ring ran full)
         self.sweep_host_steps = 0

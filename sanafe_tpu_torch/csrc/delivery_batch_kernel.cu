@@ -11,9 +11,11 @@
 //                   that fired in sample b, of W[k][i]
 //   arrived[b, d] = OR over the same rows of the packed arrival plane A[k][i]
 // with the blocks sorted dest-major (dest_offsets[d]..dest_offsets[d+1]).
-// W and A are shared by every sample, or (a sweep that overrides the block
-// weights or edge counts) one set a sample, w_stride / a_stride elements
-// apart.
+// W and A hold only the listed rows ([count, tile] and [count, words]: row r
+// is the list's r-th entry), shared by every sample, or (a sweep that
+// overrides the block weights or edge counts) one set a sample, w_stride /
+// a_stride elements apart; every offset into them is 64-bit (16.8M edges
+// list 4.15M rows, 1.06e9 float32 elements).
 //
 // What bounds it: the bytes of the weight rows it must read. The TPU kernel
 // multiplied whole blocks because its matrix unit wants them; of the
@@ -23,9 +25,9 @@
 // ever -0.0, and adding +-0.0 to it changes no bit. So a row whose weights
 // are all +-0.0 and whose arrival bits are all 0 is skipped, for any
 // weights, in both dtypes (a NaN or inf weight makes its row live). The
-// caller passes each block's ascending list of such live rows, built once
-// per sweep (ops/delivery.py: build_live_rows). What the kernel must read a
-// step is then the live rows fired in any sample: 34 MB on that chip
+// caller passes each block's ascending list of such live rows and those
+// rows alone, built once per sweep (ops/delivery.py). What the kernel must
+// read a step is then the live rows fired in any sample: 34 MB on that chip
 // (0.01 ms at 3.35 TB/s) instead of 3.83 GB. Where every row is live
 // (dense connectivity) the bytes bound it up to about 16 samples and the
 // adds past that (one float add a cell a sample).
@@ -39,7 +41,8 @@
 // 2. The producer warp walks the tile's part of the live-row list (blocks
 //    ascending, rows ascending), 256 entries a round, keeps the rows some
 //    sample of the pass fired (their mask bits) and lists them, their
-//    weight-row index and pass mask, in a free slot of the ring
+//    compact row (the entry's place in the list) and pass mask, in a free
+//    slot of the ring
 //    (`described`). A slot is free once every adder warp added its last
 //    rows (`empty`).
 // 3. The copier warps copy each listed row's weights and arrival words
@@ -333,7 +336,8 @@ batch_kernel(const T* __restrict__ w, const uint32_t* __restrict__ arrive,
           while (s_off[b + 1] <= e) ++b;
           nrow[k] = s_src[b] * tile + static_cast<int>(row[k]);
         }
-        wrow[k] = (b_begin + b) * tile + static_cast<int>(row[k]);
+        // the compact rows hold the list in order: entry e is row e
+        wrow[k] = e_base + e;
       }
       uint32_t lo_w[kPerLane], hi_w[kPerLane];
 #pragma unroll
@@ -611,12 +615,13 @@ long long sanafe_delivery_batch_smem(int batch, int n_tiles, int tile,
 }
 
 // B deliveries on `stream`, float (is_double = 0) or double: the mask
-// kernel, then the main kernel. x is [batch, n_tiles, tile]; weights and
-// arrive are one shared set (stride 0) or one set a sample (`w_stride`,
-// `a_stride` elements apart). `live_rows` (uint8) and `live_offsets`
-// ([n_blocks + 1] int32) list each block's live rows in ascending order
-// (block k's are live_rows[live_offsets[k] .. live_offsets[k + 1]]); with
-// per-sample weights or arrivals, the union over the samples. `masks`
+// kernel, then the main kernel. x is [batch, n_tiles, tile]. `live_rows`
+// (uint8) and `live_offsets` ([n_blocks + 1] int32) list each block's live
+// rows in ascending order (block k's are live_rows[live_offsets[k] ..
+// live_offsets[k + 1]]); with per-sample weights or arrivals, the union over
+// the samples. weights ([count, tile]) and arrive ([count, words]) hold the
+// listed rows in list order, one shared set (stride 0) or one set a sample
+// (`w_stride`, `a_stride` elements apart). `masks`
 // ([ceil(batch / 32), n_tiles * tile] uint32) is scratch the caller
 // allocates. Every pointer is 16-byte aligned. `tile` is a power of two in
 // [8, 256]; `blk_cap` is the largest number of blocks of one destination

@@ -23,13 +23,16 @@
 // ever -0.0, and adding +-0.0 to it changes no bit. So a row whose weights
 // are all +-0.0 and whose arrival bits are all 0 is skipped, for any
 // weights, in both dtypes (a NaN or inf weight makes its row live). The
-// program builds each block's ascending list of live rows once
-// (ops/delivery.py: build_live_rows), and the wrapper's plan expands it,
-// once, into one (weight row, source neuron) pair an entry, in list order:
-// blocks ascending, rows ascending within a block; a destination tile's
-// entries are contiguous. What the kernel must read a step is then the
-// live rows that fired: 34 MB on that chip (0.01 ms at 3.35 TB/s) instead
-// of the 3.83 GB of every fired row.
+// program builds each block's ascending list of live rows once, and holds
+// those rows alone: weights [count, tile] and arrival words [count, words],
+// row r the list's r-th (ops/step.py: build_block_delivery, straight from
+// the edges; 16.8M edges list 4.15M rows, 4.4 GB, where the dense blocks
+// would take 80 GB). The wrapper's plan expands the list, once, into one
+// (compact row, source neuron) pair an entry, in list order: blocks
+// ascending, rows ascending within a block; a destination tile's entries
+// are contiguous. Offsets into the rows are 64-bit. What the kernel must
+// read a step is then the live rows that fired: 34 MB on that chip (0.01 ms
+// at 3.35 TB/s) instead of the 3.83 GB of every fired row.
 //
 // One launch a step: one CTA per (destination tile, column slice), with
 // three kinds of warps, which hand a ring of stages (up to kRows rows each)
@@ -437,9 +440,11 @@ long long sanafe_delivery_smem(int n_tiles, int tile, int is_double) {
 }
 
 // One delivery on `stream`, float (is_double = 0) or double, in one launch.
-// x [n_tiles, tile] is the fired plane; `entries` (int32 pairs) are the
-// live rows in list order, each as (weight row b * tile + i, source neuron
-// src_tile(b) * tile + i); destination tile d's entries are
+// x [n_tiles, tile] is the fired plane; `weights` [count, tile] and
+// `arrive` [count, words] are the live rows alone, in list order; `entries`
+// (int32 pairs) are the list, each as (its compact row, source neuron
+// src_tile(b) * tile + i of live row i of block b); destination tile d's
+// entries are
 // entries[tile_entries[d] .. tile_entries[d + 1]]. `out_arrived` is
 // [n_tiles, tile] bytes. Every pointer is 16-byte aligned, `tile` a
 // multiple of 4 up to 256. Returns the CUDA error (0 on success).

@@ -388,6 +388,16 @@ def write_netlist(path, net: SpikingNetwork) -> None:
             lines.append(entry)
     for name, group in net.groups.items():
         gid = group_index[name]
+        # hyperedges lowered to arrays (network.py:BulkEdges) expand to
+        # single edges, as the YAML writer expands them
+        for bulk in group.bulk_edges:
+            dest_gid = group_index[bulk.dest_group_name]
+            for k in range(len(bulk)):
+                entry = (f"e {gid}.{int(bulk.src_idx[k])}->"
+                         f"{dest_gid}.{int(bulk.dest_idx[k])}")
+                for key, (values, _, _) in bulk.attributes.items():
+                    entry += f" {key}={_format_value(float(values[k]))}"
+                lines.append(entry)
         for neuron in group.neurons:
             for edge in neuron.edges_out:
                 dest_gid = group_index[edge.post_neuron.group_name]

@@ -18,6 +18,7 @@ Lowering formulas are parity-critical and mirror the reference exactly:
 
 from __future__ import annotations
 
+import itertools
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Optional
@@ -219,9 +220,10 @@ class Neuron:
 @dataclass
 class BulkEdges:
     """A group-level hyperedge lowered to flat numpy arrays instead of
-    per-edge ``Connection`` objects — the fast path for conv2d/dense
-    generators at scale (a DVS-gesture net has 3.5M edges; building Python
-    objects for each dominates load time). Attribute arrays are keyed by
+    per-edge ``Connection`` objects — the fast path for conv2d, dense and
+    sparse generators at scale (a DVS-gesture net has 3.5M edges, TCAD'25's
+    largest random net 16.8M; building Python objects for each dominates
+    load time). Attribute arrays are keyed by
     name with (values, forward_to_synapse, forward_to_dendrite) tuples."""
 
     dest_group_name: str
@@ -284,27 +286,70 @@ def _normalize_attribute_lists(
     return out
 
 
-def _attribute_lists_to_arrays(
-    attribute_lists: dict[str, list[Attribute]],
+_PLAIN_NUMBERS = (int, float, np.integer, np.floating)
+
+
+def _edge_value_arrays(
+    attribute_lists: dict,
 ) -> Optional[dict[str, tuple["np.ndarray", bool, bool]]]:
-    """Convert per-edge attribute lists to numpy arrays when every value is
-    a plain number; returns None if the lists need the object path."""
+    """Per-edge values as float64 arrays, without an ``Attribute`` per
+    value: a one-dimensional numeric numpy array, a list of plain numbers,
+    or a list of ``Attribute``s of plain numbers that all forward alike.
+    None where any value needs the object path (a bool, a string, a list,
+    mixed forwarding)."""
     arrays: dict[str, tuple[np.ndarray, bool, bool]] = {}
-    for key, attribute_list in attribute_lists.items():
-        values = []
-        fwd_syn = True
-        fwd_den = True
-        for attribute in attribute_list:
-            value = attribute.value
-            if isinstance(value, bool) or not isinstance(
-                value, (int, float)
+    for key, values in attribute_lists.items():
+        if isinstance(values, np.ndarray):
+            if values.dtype.kind not in "iuf" or values.ndim != 1:
+                return None
+            arrays[key] = (values.astype(np.float64), True, True)
+            continue
+        types = set(map(type, values))
+        if types and all(issubclass(t, _PLAIN_NUMBERS)
+                         and not issubclass(t, (bool, np.bool_))
+                         for t in types):
+            arrays[key] = (np.asarray(values, dtype=np.float64), True, True)
+        elif types == {Attribute}:
+            flags = {(a.forward_to_synapse, a.forward_to_dendrite)
+                     for a in values}
+            plain = [a.value for a in values]
+            kinds = set(map(type, plain))
+            if len(flags) != 1 or not all(
+                issubclass(t, _PLAIN_NUMBERS)
+                and not issubclass(t, (bool, np.bool_)) for t in kinds
             ):
                 return None
-            values.append(value)
-            fwd_syn = attribute.forward_to_synapse
-            fwd_den = attribute.forward_to_dendrite
-        arrays[key] = (np.asarray(values, dtype=np.float64), fwd_syn, fwd_den)
+            fwd_syn, fwd_den = flags.pop()
+            arrays[key] = (np.asarray(plain, dtype=np.float64), fwd_syn,
+                           fwd_den)
+        else:
+            return None
     return arrays
+
+
+def _pair_arrays(pairs) -> Optional[tuple["np.ndarray", "np.ndarray"]]:
+    """(source ids, dest ids) int64 of ``pairs``, an ``[E, 2]`` integer
+    array or a list or tuple of integer (source, dest) pairs; None for
+    anything else."""
+    if isinstance(pairs, np.ndarray):
+        if pairs.dtype.kind not in "iu" or pairs.ndim != 2 or (
+            pairs.shape[1] != 2
+        ):
+            return None
+        ids = pairs.astype(np.int64)
+        return ids[:, 0], ids[:, 1]
+    if not isinstance(pairs, (list, tuple)) or set(map(len, pairs)) != {2}:
+        return None
+    first = pairs[0]
+    if not all(isinstance(v, (int, np.integer))
+               and not isinstance(v, (bool, np.bool_)) for v in first):
+        return None
+    try:
+        flat = np.fromiter(itertools.chain.from_iterable(pairs),
+                           dtype=np.int64, count=2 * len(pairs))
+    except (TypeError, ValueError, OverflowError):
+        return None
+    return flat[0::2], flat[1::2]
 
 
 class NeuronGroup:
@@ -346,11 +391,10 @@ class NeuronGroup:
     ) -> None:
         """All-to-all connect; lists index src*n_dest+dest
         (src/network.cpp:567-605)."""
-        attribute_lists = _normalize_attribute_lists(attribute_lists)
         n_dest = len(dest_group.neurons)
         n_src = len(self.neurons)
         arrays = (
-            _attribute_lists_to_arrays(attribute_lists)
+            _edge_value_arrays(attribute_lists)
             if n_src * n_dest >= BULK_EDGE_THRESHOLD
             else None
         )
@@ -377,6 +421,7 @@ class NeuronGroup:
                 )
             )
             return
+        attribute_lists = _normalize_attribute_lists(attribute_lists)
         for source_index, source in enumerate(self.neurons):
             for dest_index, dest in enumerate(dest_group.neurons):
                 list_index = source_index * n_dest + dest_index
@@ -389,9 +434,10 @@ class NeuronGroup:
         attribute_lists: dict[str, list[Attribute]],
         source_dest_id_pairs: list[tuple[int, int]],
     ) -> None:
-        attribute_lists = _normalize_attribute_lists(attribute_lists)
         """Pairwise connect; lists index by edge position and must match the
-        pair count exactly (src/network.cpp:229-276)."""
+        pair count exactly (src/network.cpp:229-276). At or above
+        ``BULK_EDGE_THRESHOLD`` pairs with plain numeric values the
+        hyperedge lowers to ``BulkEdges`` arrays (``_sparse_bulk_edges``)."""
         n_pairs = len(source_dest_id_pairs)
         for key, value_list in attribute_lists.items():
             if len(value_list) != n_pairs:
@@ -399,6 +445,13 @@ class NeuronGroup:
                     "Length of attribute list != number of defined edges. "
                     f"({len(value_list)}!={n_pairs})"
                 )
+        if n_pairs >= BULK_EDGE_THRESHOLD:
+            bulk = self._sparse_bulk_edges(
+                dest_group, attribute_lists, source_dest_id_pairs)
+            if bulk is not None:
+                self.bulk_edges.append(bulk)
+                return
+        attribute_lists = _normalize_attribute_lists(attribute_lists)
         for edge_idx, (source_id, dest_id) in enumerate(source_dest_id_pairs):
             if source_id >= len(self.neurons):
                 raise ValueError(f"src id is out of range: {source_id}")
@@ -413,6 +466,54 @@ class NeuronGroup:
             attributes = {k: v[edge_idx] for k, v in attribute_lists.items()}
             con.synapse_attributes = dict(attributes)
             con.dendrite_attributes = dict(attributes)
+
+    def _sparse_bulk_edges(
+        self,
+        dest_group: "NeuronGroup",
+        attribute_lists: dict,
+        pairs,
+    ) -> Optional[BulkEdges]:
+        """The sparse hyperedge as ``BulkEdges``: the pairs and each
+        attribute's values as arrays, with no object per edge. None where
+        the object path must take it: a value that is not a plain number,
+        pairs that are not integer (source, dest) pairs, or attributes that
+        compile reads differently from arrays (``compartment``; both
+        spellings of the weight or of the delay). Ids are checked as the
+        object path checks them, the first bad pair in edge order
+        raising the same error."""
+        keys = set(attribute_lists)
+        if "compartment" in keys or {"w", "weight"} <= keys or (
+            {"delay", "d"} <= keys
+        ):
+            return None
+        arrays = _edge_value_arrays(attribute_lists)
+        if arrays is None:
+            return None
+        ids = _pair_arrays(pairs)
+        if ids is None:
+            return None
+        src, dst = ids
+        n_src, n_dest = len(self.neurons), len(dest_group.neurons)
+        # a negative id counts from the end, as a list index does
+        src = np.where(src < 0, src + n_src, src)
+        dst = np.where(dst < 0, dst + n_dest, dst)
+        bad = np.flatnonzero((src >= n_src) | (dst >= n_dest)
+                             | (src < 0) | (dst < 0))
+        if bad.size:
+            k = bad[0]
+            if src[k] >= n_src:
+                raise ValueError(f"src id is out of range: {pairs[k][0]}")
+            if src[k] < 0:
+                raise IndexError("list index out of range")
+            if dst[k] >= n_dest:
+                raise ValueError(f"dest nid is out of range: {pairs[k][1]}")
+            raise IndexError("list index out of range")
+        return BulkEdges(
+            dest_group_name=dest_group.name,
+            src_idx=src.astype(np.int32),
+            dest_idx=dst.astype(np.int32),
+            attributes=arrays,
+        )
 
     def connect_neurons_conv2d(
         self,
@@ -431,7 +532,6 @@ class NeuronGroup:
         (src/network.cpp:278-528). Accepts either a Conv2DParameters or the
         reference Python module's positional ints
         (src/pymodule.cpp:335-356)."""
-        attribute_lists = _normalize_attribute_lists(attribute_lists)
         if isinstance(convolution, Conv2DParameters):
             c = convolution
         else:
@@ -489,7 +589,7 @@ class NeuronGroup:
             * c.kernel_width
         )
         arrays = (
-            _attribute_lists_to_arrays(attribute_lists)
+            _edge_value_arrays(attribute_lists)
             if n_conv_edges >= BULK_EDGE_THRESHOLD
             else None
         )
@@ -546,6 +646,7 @@ class NeuronGroup:
             )
             return
 
+        attribute_lists = _normalize_attribute_lists(attribute_lists)
         for c_out in range(out_c):
             for y_out in range(out_h):
                 for x_out in range(out_w):

@@ -287,7 +287,7 @@ def make_dag_body(prog: DeviceProgram, plan: DagPlan) -> Callable:
                 dev),
             "out_mask": torch.from_numpy(lv.out_mask).to(dev),
         })
-    has_block = prog.block is not None and prog.block.weights.shape[0] > 0
+    has_block = prog.block is not None and prog.block.n_blocks > 0
 
     def run(state: dict, t0, T: int):
         if not isinstance(t0, torch.Tensor):

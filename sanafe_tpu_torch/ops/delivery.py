@@ -18,16 +18,24 @@ bit; every other row would add +0.0, which changes no bit of a sum from
 of the int8 counts it takes the packed arrival plane
 ``pack_arrival_plane(counts)`` (``counts > 0``, 32 columns a word) and ORs
 it over those rows. Each column adds the fired live rows in list order
-(blocks ascending, rows ascending within a block) from +0.0;
-``delivery_live_plain`` is that sum in PyTorch, the wrapper's path for CPU
-tensors. A program checks the operands once (``plan_delivery``) and each
-step launches (``delivery_launch``).
+(blocks ascending, rows ascending within a block) from +0.0.
+
+The kernels hold only the listed rows: weights ``[count, tile]`` and
+arrival words ``[count, words]``, row ``r`` being the list's ``r``-th
+entry (``compact_blocks`` takes them out of dense blocks; a program builds
+them straight from its edges, ``ops/step.py:build_block_delivery``).
+``delivery_live_plain`` is the kernel's sum in PyTorch over the dense
+blocks, the plain version the compact path is held to; the wrappers' path
+for CPU tensors runs the same sum over the compact rows. A program checks
+the operands once (``plan_delivery``) and each step launches
+(``delivery_launch``).
 
 ``delivery_batch_kernel`` (``csrc/delivery_batch_kernel.cu``) is the same
 delivery for B fired vectors at once, the sample axis of ``ParameterSweep``
 (sanafe_tpu's ``jax.vmap`` of the Pallas kernel): each live weight row
 fired in any sample is read once and added into every sample that fired
-it, in the same order. Its plain version is ``delivery_batch_plain``.
+it, in the same order. Its plain version over the dense blocks is
+``delivery_batch_plain``.
 """
 
 from __future__ import annotations
@@ -196,31 +204,91 @@ def every_row_live(n_blocks: int, tile: int, device) -> LiveRows:
                                     device=device))
 
 
-def live_entries(live_rows: LiveRows, src_tiles, dest_offsets, tile: int):
-    """The list as the kernel walks it, in list order (blocks ascending,
-    rows ascending within a block): int32 ``[count, 2]`` pairs (weight row
-    ``b * tile + i``, source neuron ``src_tiles[b] * tile + i``) of live
-    row ``i`` of block ``b``, and each destination tile's first entry,
-    int32 ``[n_tiles + 1]`` (the blocks are sorted dest-major, so a tile's
-    entries are contiguous). Built once a program, on the list's device."""
+def _list_blocks(live_rows: LiveRows) -> torch.Tensor:
+    """The block of each listed row, int64 ``[count]``, in list order."""
     offsets = live_rows.offsets.long()
     n_blocks = offsets.numel() - 1
     count = live_rows.count
     if n_blocks < 0 or int(offsets[-1]) != count:
         raise ValueError(f"delivery_kernel: live_rows lists {count} rows, "
                          f"its offsets end at {offsets[-1:].tolist()}")
-    block = torch.repeat_interleave(
+    return torch.repeat_interleave(
         torch.arange(n_blocks, device=offsets.device), offsets.diff(),
         output_size=count)
+
+
+def live_row_ids(live_rows: LiveRows, tile: int) -> torch.Tensor:
+    """Each listed row's index ``b * tile + i`` among the dense blocks'
+    rows (live row ``i`` of block ``b``), int64 ``[count]``, ascending."""
+    return (_list_blocks(live_rows) * tile
+            + live_rows.rows[:live_rows.count].long())
+
+
+def compact_blocks(weights: torch.Tensor, arrivals: torch.Tensor,
+                   live_rows: Optional[LiveRows] = None) -> tuple:
+    """(live_rows, weights ``[..., count, tile]``, arrivals ``[..., count,
+    words]``): the rows of dense blocks ``weights`` [..., n_blocks, tile,
+    tile] and ``arrivals`` [..., n_blocks, tile, words] that ``live_rows``
+    lists (``build_live_rows`` of them where None), in list order, each
+    leading ``[B]`` axis kept: the operands of the kernels, which hold no
+    other row."""
+    tile, words = weights.shape[-2], arrivals.shape[-1]
+    if live_rows is None:
+        live_rows = build_live_rows(weights, arrivals)
+    ids = live_row_ids(live_rows, tile).to(weights.device)
+    w = weights.reshape(tuple(weights.shape[:-3]) + (-1, tile))
+    a = arrivals.reshape(tuple(arrivals.shape[:-3]) + (-1, words))
+    return (live_rows, w.index_select(w.dim() - 2, ids).contiguous(),
+            a.index_select(a.dim() - 2, ids.to(a.device)).contiguous())
+
+
+def dense_blocks(rows: Optional[torch.Tensor], words: Optional[torch.Tensor],
+                 live_rows: LiveRows, n_blocks: int,
+                 tile: Optional[int] = None) -> tuple:
+    """``compact_blocks``'s inverse: (weights ``[..., n_blocks, tile,
+    tile]``, arrivals ``[..., n_blocks, tile, words]``) holding ``rows``
+    ``[..., count, tile]`` and ``words`` ``[..., count, words]`` at the
+    rows ``live_rows`` lists and zeros elsewhere, each leading ``[B]`` axis
+    kept: the operands of the plain versions that multiply every row.
+    Either may be None, and is then None in the result; ``tile`` defaults
+    to the width of ``rows``."""
+    tile = rows.shape[-1] if tile is None else tile
+    ids = live_row_ids(live_rows, tile)
+
+    def place(x):
+        if x is None:
+            return None
+        lead = tuple(x.shape[:-2])
+        out = torch.zeros(lead + (n_blocks * tile, x.shape[-1]),
+                          dtype=x.dtype, device=x.device)
+        out.index_copy_(out.dim() - 2, ids.to(x.device), x)
+        return out.view(lead + (n_blocks, tile, x.shape[-1]))
+
+    return place(rows), place(words)
+
+
+def live_entries(live_rows: LiveRows, src_tiles, dest_offsets, tile: int):
+    """The list as the kernel walks it, in list order (blocks ascending,
+    rows ascending within a block): int32 ``[count, 2]`` pairs (row ``r``
+    of the compact weights, which is entry ``r`` itself; source neuron
+    ``src_tiles[b] * tile + i``) of live row ``i`` of block ``b``, and each
+    destination tile's first entry, int32 ``[n_tiles + 1]`` (the blocks are
+    sorted dest-major, so a tile's entries are contiguous). Built once a
+    program, on the list's device."""
+    block = _list_blocks(live_rows)
+    count = live_rows.count
     row = live_rows.rows[:count].long()
     entries = torch.stack(
-        [block * tile + row, src_tiles.long()[block] * tile + row],
-        dim=1).to(torch.int32)
-    return entries, offsets[dest_offsets.long()].to(torch.int32)
+        [torch.arange(count, device=block.device),
+         src_tiles.long()[block] * tile + row], dim=1).to(torch.int32)
+    return entries, live_rows.offsets.long()[dest_offsets.long()].to(
+        torch.int32)
 
 
 def _live_sum(fired_tiles, weights, arrivals, entries, tile_entries):
-    """``delivery_live_plain`` on the list's entries (``live_entries``)."""
+    """``delivery_live_plain`` on the compact rows (``weights`` [count,
+    tile], ``arrivals`` [count, words]) and the list's entries
+    (``live_entries``)."""
     n_tiles, tile = fired_tiles.shape
     wrow = entries[:, 0].long()
     src = entries[:, 1].long()
@@ -255,9 +323,14 @@ def delivery_live_plain(fired_tiles, weights, arrivals, src_tiles,
     +-0.0 weights and no arrival bit and changes no bit of such a sum, so
     this equals adding every fired row in that order, for any weights, and
     equals ``delivery_packed_plain`` wherever the partial sums are exact
-    (integer weights)."""
+    (integer weights). ``weights`` and ``arrivals`` are the dense blocks,
+    [B, tile, tile] and [B, tile, words], or the listed rows alone,
+    [count, tile] and [count, words], as ``delivery_kernel`` takes them."""
     del max_blocks_per_dest
-    return _live_sum(fired_tiles, weights, arrivals,
+    rows, words = weights, arrivals
+    if weights.dim() == 3:
+        _, rows, words = compact_blocks(weights, arrivals, live_rows)
+    return _live_sum(fired_tiles, rows, words,
                      *live_entries(live_rows, src_tiles, dest_offsets,
                                    fired_tiles.shape[1]))
 
@@ -280,10 +353,10 @@ def _library():
 class Delivery(NamedTuple):
     """``delivery_kernel``'s operands but the fired plane, checked once
     (``plan_delivery``): a launch (``delivery_launch``) then checks only its
-    plane. ``entries`` and ``tile_entries`` are the list as the kernel
-    walks it (``live_entries``); ``launch`` holds the library's arguments
-    after the plane's pointer (None for CPU tensors, which take the plain
-    version)."""
+    plane. ``weights`` and ``arrivals`` are the compact rows; ``entries``
+    and ``tile_entries`` are the list as the kernel walks it
+    (``live_entries``); ``launch`` holds the library's arguments after the
+    plane's pointer (None for CPU tensors, which take the plain sum)."""
 
     weights: torch.Tensor
     arrivals: torch.Tensor
@@ -312,7 +385,7 @@ def plan_delivery(weights, arrivals, src_tiles, dest_offsets,
     the kernel refuses raises there, and a step's launch pays none of it
     and stays capturable."""
     n_tiles = dest_offsets.shape[0] - 1
-    n_blocks, tile = weights.shape[0], weights.shape[1]
+    n_blocks, tile = src_tiles.shape[0], weights.shape[-1]
     plan = dict(weights=weights, arrivals=arrivals, src_tiles=src_tiles,
                 dest_offsets=dest_offsets,
                 max_blocks_per_dest=int(max_blocks_per_dest),
@@ -330,22 +403,21 @@ def plan_delivery(weights, arrivals, src_tiles, dest_offsets,
     if not 0 < tile <= MAX_TILE or tile % 4:
         raise ValueError(f"delivery_kernel: tile {tile} is not a multiple "
                          f"of 4 up to {MAX_TILE}")
-    if n_blocks * tile >= 2**31:
-        raise ValueError("delivery_kernel: the kernel indexes weight rows "
-                         "with int32; 2**31 or more rows")
     if not isinstance(live_rows, LiveRows):
         raise ValueError("delivery_kernel: live_rows must be a LiveRows "
                          "(build_live_rows)")
+    count = live_rows.count
+    if count >= 2**31:
+        raise ValueError("delivery_kernel: the kernel indexes weight rows "
+                         "with int32; 2**31 or more rows")
     n_live = live_rows.rows.numel()
-    if n_live % 16 or not 0 <= live_rows.count <= min(n_live,
-                                                      n_blocks * tile):
+    if n_live % 16 or not 0 <= count <= min(n_live, n_blocks * tile):
         raise ValueError(
-            f"delivery_kernel: live_rows lists {live_rows.count} rows in "
+            f"delivery_kernel: live_rows lists {count} rows in "
             f"{n_live} bytes for {n_blocks} blocks of {tile} rows")
     expect = (
-        ("weights", weights, (n_blocks, tile, tile), dtype),
-        ("arrivals", arrivals, (n_blocks, tile, -(-tile // 32)),
-         torch.int32),
+        ("weights", weights, (count, tile), dtype),
+        ("arrivals", arrivals, (count, -(-tile // 32)), torch.int32),
         ("src_tiles", src_tiles, (n_blocks,), torch.int32),
         ("dest_offsets", dest_offsets, (n_tiles + 1,), torch.int32),
         ("live_rows.rows", live_rows.rows, (n_live,), torch.uint8),
@@ -413,19 +485,21 @@ def delivery_launch(fired_tiles, plan: Delivery):
 
 def delivery_kernel(fired_tiles, weights, arrivals, src_tiles, dest_offsets,
                     max_blocks_per_dest: int, live_rows: LiveRows):
-    """One delivery: the CUDA kernel for CUDA tensors,
-    ``delivery_live_plain`` for CPU tensors.
+    """One delivery: the CUDA kernel for CUDA tensors, the same sum in
+    PyTorch for CPU tensors.
 
-    ``fired_tiles`` [n_tiles, tile] 0/1 in the program dtype, ``weights``
-    [B, tile, tile] in the same dtype, ``arrivals`` [B, tile,
-    ceil(tile/32)] int32 (``pack_arrival_plane``), ``src_tiles`` [B] int32,
-    ``dest_offsets`` [n_tiles + 1] int32, ``live_rows`` the blocks' live
-    rows (``build_live_rows`` of these weights and arrivals, or a list with
-    more rows, such as ``every_row_live``). Returns (currents [n_tiles,
-    tile] in the program dtype, arrived [n_tiles, tile] bool), equal to
-    ``delivery_live_plain``'s bit for bit, and to ``delivery_plain``'s
-    currents and ``cnt > 0`` wherever the partial sums are exact (integer
-    weights).
+    ``fired_tiles`` [n_tiles, tile] 0/1 in the program dtype; ``live_rows``
+    the blocks' live rows (``build_live_rows``, or a list with more rows,
+    such as ``every_row_live``); ``weights`` [count, tile] in the program
+    dtype and ``arrivals`` [count, ceil(tile/32)] int32 the listed rows of
+    the weight blocks and of their packed arrival plane
+    (``pack_arrival_plane``), row ``r`` the list's ``r``-th
+    (``compact_blocks``); ``src_tiles`` [B] int32 and ``dest_offsets``
+    [n_tiles + 1] int32 of the B blocks. Returns (currents [n_tiles, tile]
+    in the program dtype, arrived [n_tiles, tile] bool), equal bit for bit
+    to ``delivery_live_plain``'s over the dense blocks, and to
+    ``delivery_plain``'s currents and ``cnt > 0`` wherever the partial sums
+    are exact (integer weights).
 
     The kernel reads only the listed rows that fired, in one launch; it runs
     float32 and float64, launches on the current stream and does not
@@ -435,9 +509,9 @@ def delivery_kernel(fired_tiles, weights, arrivals, src_tiles, dest_offsets,
     its launches."""
     dev = fired_tiles.device
     if dev.type == "cpu":
-        return delivery_live_plain(fired_tiles, weights, arrivals,
-                                   src_tiles, dest_offsets,
-                                   max_blocks_per_dest, live_rows)
+        return delivery_launch(fired_tiles, plan_delivery(
+            weights, arrivals, src_tiles, dest_offsets, max_blocks_per_dest,
+            live_rows))
     if dev.type != "cuda":
         raise ValueError(f"delivery_kernel: unsupported device {dev}")
     if fired_tiles.dim() != 2:
@@ -501,9 +575,11 @@ def _batch_library():
 class BatchDelivery(NamedTuple):
     """``delivery_batch_kernel``'s operands but the fired planes, checked
     once for ``batch`` samples (``plan_delivery_batch``): a launch
-    (``delivery_batch_launch``) then checks only its planes. ``launch``
-    holds the library's arguments after the planes' pointer (None for CPU
-    tensors, which take the plain version)."""
+    (``delivery_batch_launch``) then checks only its planes. ``weights``
+    and ``arrivals`` are the compact rows, shared or one set a sample;
+    ``launch`` holds the library's arguments after the planes' pointer
+    (None for CPU tensors, which take the plain sum over ``entries`` and
+    ``tile_entries``, the list as ``live_entries`` gives it)."""
 
     weights: torch.Tensor
     arrivals: torch.Tensor
@@ -515,6 +591,8 @@ class BatchDelivery(NamedTuple):
     launch: Optional[tuple]
     arrived_bytes: int  # the arrived planes' bytes, rounded up to 16
     scratch_bytes: int  # the arrived planes and the sample masks
+    entries: Optional[torch.Tensor] = None
+    tile_entries: Optional[torch.Tensor] = None
 
 
 def plan_delivery_batch(batch: int, weights, arrivals, src_tiles,
@@ -525,7 +603,7 @@ def plan_delivery_batch(batch: int, weights, arrivals, src_tiles,
     shared memory, once: ``ParameterSweep`` builds its plan with the
     program, so a step's launch pays neither."""
     n_tiles = dest_offsets.shape[0] - 1
-    n_blocks, tile = weights.shape[-3], weights.shape[-2]
+    n_blocks, tile = src_tiles.shape[0], weights.shape[-1]
     shape = (batch, n_tiles, tile)
     plan = dict(weights=weights, arrivals=arrivals, src_tiles=src_tiles,
                 dest_offsets=dest_offsets,
@@ -534,7 +612,10 @@ def plan_delivery_batch(batch: int, weights, arrivals, src_tiles,
                 arrived_bytes=0, scratch_bytes=0)
     dev = weights.device
     if dev.type == "cpu":
-        return BatchDelivery(**plan)
+        entries, tile_entries = live_entries(live_rows, src_tiles,
+                                             dest_offsets, tile)
+        return BatchDelivery(**plan, entries=entries,
+                             tile_entries=tile_entries)
     if dev.type != "cuda":
         raise ValueError(f"delivery_batch_kernel: unsupported device {dev}")
     dtype = weights.dtype
@@ -546,24 +627,24 @@ def plan_delivery_batch(batch: int, weights, arrivals, src_tiles,
     if not 8 <= tile <= MAX_TILE or tile & (tile - 1):
         raise ValueError(f"delivery_batch_kernel: tile {tile} is not a "
                          f"power of two in [8, {MAX_TILE}]")
-    if n_blocks * tile >= 2**31:
-        raise ValueError("delivery_batch_kernel: the kernel indexes weight "
-                         "rows with int32; 2**31 or more rows")
     if not isinstance(live_rows, LiveRows):
         raise ValueError("delivery_batch_kernel: live_rows must be a "
                          "LiveRows (build_live_rows)")
+    count = live_rows.count
+    if count >= 2**31:
+        raise ValueError("delivery_batch_kernel: the kernel indexes weight "
+                         "rows with int32; 2**31 or more rows")
     n_live = live_rows.rows.numel()
-    if n_live % 16 or not 0 <= live_rows.count <= min(n_live,
-                                                      n_blocks * tile):
+    if n_live % 16 or not 0 <= count <= min(n_live, n_blocks * tile):
         raise ValueError(
-            f"delivery_batch_kernel: live_rows lists {live_rows.count} rows "
+            f"delivery_batch_kernel: live_rows lists {count} rows "
             f"in {n_live} bytes for {n_blocks} blocks of {tile} rows")
     words = -(-tile // 32)
-    w_shape = (n_blocks, tile, tile)
-    a_shape = (n_blocks, tile, words)
-    if weights.dim() == 4:
+    w_shape = (count, tile)
+    a_shape = (count, words)
+    if weights.dim() == 3:
         w_shape = (batch,) + w_shape
-    if arrivals.dim() == 4:
+    if arrivals.dim() == 3:
         a_shape = (batch,) + a_shape
     expect = (
         ("weights", weights, w_shape, dtype),
@@ -584,8 +665,9 @@ def plan_delivery_batch(batch: int, weights, arrivals, src_tiles,
                 f"16-byte aligned {dt} tensor of shape {want} on {dev}; got "
                 f"{x.dtype} {tuple(x.shape)} on {x.device}")
         pointers.append(ptr)
-    w_stride = n_blocks * tile * tile if weights.dim() == 4 else 0
-    a_stride = n_blocks * tile * words if arrivals.dim() == 4 else 0
+    # 64-bit element offsets: a sample's rows may pass 2**31 elements
+    w_stride = count * tile if weights.dim() == 3 else 0
+    a_stride = count * words if arrivals.dim() == 3 else 0
     is_double = int(dtype == torch.float64)
     blk_cap = plan["max_blocks_per_dest"]
     per_sample = int(bool(w_stride or a_stride))
@@ -608,17 +690,29 @@ def plan_delivery_batch(batch: int, weights, arrivals, src_tiles,
     return BatchDelivery(**plan)
 
 
+def _live_batch_sum(fired_tiles, plan: BatchDelivery):
+    """``delivery_batch_kernel``'s sums in PyTorch: each sample's
+    ``_live_sum`` over its rows (the shared ones, or its own)."""
+    cur, arrived = [], []
+    for b in range(fired_tiles.shape[0]):
+        w = plan.weights[b] if plan.weights.dim() == 3 else plan.weights
+        a = plan.arrivals[b] if plan.arrivals.dim() == 3 else plan.arrivals
+        c, v = _live_sum(fired_tiles[b], w, a, plan.entries,
+                         plan.tile_entries)
+        cur.append(c)
+        arrived.append(v)
+    return torch.stack(cur), torch.stack(arrived)
+
+
 def delivery_batch_launch(fired_tiles, plan: BatchDelivery):
     """``delivery_batch_kernel`` on ``plan``'s operands: the CUDA kernels
-    for CUDA planes, ``delivery_batch_plain`` for CPU ones. Checks only the
+    for CUDA planes, the same sums in PyTorch for CPU ones. Checks only the
     planes ``fired_tiles`` ([B, n_tiles, tile], the plan's shape, in the
     weights' dtype), allocates the outputs and launches on the current
     stream; counts on ``delivery_batch_kernel.launches``."""
     dev = fired_tiles.device
     if dev.type == "cpu":
-        return delivery_batch_plain(
-            fired_tiles, plan.weights, plan.arrivals, plan.src_tiles,
-            plan.dest_offsets, plan.max_blocks_per_dest, plan.live_rows)
+        return _live_batch_sum(fired_tiles, plan)
     dtype = plan.weights.dtype
     if (plan.launch is None or dev != plan.weights.device
             or fired_tiles.dtype != dtype
@@ -655,12 +749,14 @@ def delivery_batch_kernel(fired_tiles, weights, arrivals, src_tiles,
                           dest_offsets, max_blocks_per_dest: int,
                           live_rows: LiveRows):
     """B deliveries at once: the CUDA kernels (the sample masks, then the
-    sums) for CUDA tensors, ``delivery_batch_plain`` for CPU tensors.
-    Arguments and results as ``delivery_batch_plain``'s, and ``live_rows``
-    (``build_live_rows`` of these weights and arrivals, or a list with more
-    rows, such as ``every_row_live``). It checks every operand on each
-    call; a caller that launches on the same operands step after step
-    builds ``plan_delivery_batch`` once and calls ``delivery_batch_launch``.
+    sums) for CUDA tensors, the same sums in PyTorch for CPU tensors.
+    Arguments and results as ``delivery_batch_plain``'s but the blocks:
+    ``weights`` [count, tile] or, one set a sample, [B, count, tile], and
+    ``arrivals`` [count, words] or [B, count, words], the rows
+    ``live_rows`` lists (``compact_blocks``; with per-sample sets, the
+    union of their live rows). It checks every operand on each call; a
+    caller that launches on the same operands step after step builds
+    ``plan_delivery_batch`` once and calls ``delivery_batch_launch``.
 
     The kernel reads only the listed rows that some sample fired, each once
     a step for all samples sharing ``weights`` and ``arrivals``, and adds it
@@ -678,11 +774,7 @@ def delivery_batch_kernel(fired_tiles, weights, arrivals, src_tiles,
     not synchronise.
     ``delivery_batch_kernel.launches`` counts its launches."""
     dev = fired_tiles.device
-    if dev.type == "cpu":
-        return delivery_batch_plain(fired_tiles, weights, arrivals,
-                                    src_tiles, dest_offsets,
-                                    max_blocks_per_dest, live_rows)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"delivery_batch_kernel: unsupported device {dev}")
     if fired_tiles.dim() != 3 or fired_tiles.shape[0] == 0:
         raise ValueError("delivery_batch_kernel: fired_tiles must be "

@@ -43,6 +43,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import tracing
 from ..arch import NeuronResetMode
 from ..compile import CompiledChip
 from ..models import (
@@ -56,12 +57,11 @@ from ..models import (
 from .conv import ConvDelivery, build_conv_delivery, conv_arrays, conv_deliver
 from .delivery import (
     Delivery,
+    LiveRows,
     block_rows_sum,
-    build_live_rows,
     delivery_batch_launch,
     delivery_launch,
     delivery_plain,
-    pack_arrival_plane,
     plan_delivery,
     sorted_segment_sum,
 )
@@ -93,26 +93,51 @@ class BlockDelivery:
     """Static block-sparse connectivity of the block-dense delivery path.
 
     Blocks are sorted dest-major; the blocks of destination tile ``d`` are
-    ``dest_offsets[d]:dest_offsets[d + 1]``."""
+    ``dest_offsets[d]:dest_offsets[d + 1]``. A program that delivers
+    through the kernel holds only the blocks' live rows (``live_rows``):
+    ``weights`` and ``arrivals`` are then ``[count, tile]`` and ``[count,
+    words]``, row ``r`` being the ``r``-th row the list holds."""
 
     tile: int
     n_tiles: int
     n_pad: int
     src_tiles: torch.Tensor  # [B] int32, block source tile ids
     dest_tiles: torch.Tensor  # [B] int32, sorted ascending
-    weights: torch.Tensor  # [B, tile, tile] program dtype, summed edges
+    # [B, tile, tile] program dtype, summed edges; [count, tile] where the
+    # live rows alone are held
+    weights: torch.Tensor
     # [B, tile, tile] int8, edge counts (saturated); None in a program that
     # delivers through the kernel, which reads `arrivals` instead
     counts: Optional[torch.Tensor]
     dest_offsets: torch.Tensor  # [n_tiles + 1] int32
     max_blocks_per_dest: int
-    # [B, tile, ceil(tile/32)] int32, counts > 0 packed 32 columns a word
-    # (pack_arrival_plane); only in a program that delivers through the kernel
+    # the packed arrival plane (counts > 0, 32 columns a word;
+    # pack_arrival_plane) of the live rows, [count, ceil(tile/32)] int32;
+    # only in a program that delivers through the kernel
     arrivals: Optional[torch.Tensor] = None
-    # the kernel's operands, checked once (plan_delivery), with the rows it
-    # reads (plan.live_rows: build_live_rows of weights and arrivals); only
-    # in a program that delivers through the kernel
+    # the blocks' live rows, the rows `weights` and `arrivals` hold
+    # (build_block_delivery's live_only); None where every row is held
+    live_rows: Optional[LiveRows] = None
+    # the kernel's operands, checked once (plan_delivery); only in a
+    # program that delivers through the kernel
     plan: Optional[Delivery] = None
+
+    @property
+    def n_blocks(self) -> int:
+        return int(self.src_tiles.shape[0])
+
+    @property
+    def stored_bytes(self) -> int:
+        """The bytes of the delivery's device arrays: the weights, counts
+        or arrival words, the block tables and, with a plan, its list."""
+        parts = [self.src_tiles, self.dest_tiles, self.weights,
+                 self.dest_offsets, self.counts, self.arrivals]
+        if self.live_rows is not None:
+            parts += [self.live_rows.rows, self.live_rows.offsets]
+        if self.plan is not None:
+            parts += [self.plan.entries, self.plan.tile_entries]
+        return sum(x.numel() * x.element_size() for x in parts
+                   if x is not None)
 
 
 def block_tiling(n: int) -> tuple:
@@ -123,7 +148,7 @@ def block_tiling(n: int) -> tuple:
 
 def build_block_delivery(
     c: CompiledChip, dtype: torch.dtype, device,
-    edge_subset: Optional[np.ndarray] = None,
+    edge_subset: Optional[np.ndarray] = None, live_only: bool = False,
 ) -> Optional[BlockDelivery]:
     """Lower the edge CSR into dense (src-tile, dest-tile) weight blocks.
 
@@ -133,7 +158,16 @@ def build_block_delivery(
     as ``np.add.at`` adds), cast to ``dtype`` and scattered into a zeroed
     device tensor; the edge counts likewise, saturated at 127. None when a
     dendrite keeps per-edge state (delay slots, taps, plugin compartments),
-    which takes the scatter path."""
+    which takes the scatter path.
+
+    ``live_only`` (the kernel's path) builds the same cells into the live
+    rows alone, never the dense blocks: each (block, row) that holds an
+    edge is one row of ``weights`` [count, tile] and of ``arrivals``
+    [count, words] (bit ``j % 32`` of word ``j // 32`` set where the cell
+    holds an edge), in list order (blocks ascending, rows ascending), with
+    the list (``LiveRows``) that ``build_live_rows`` gives of the dense
+    blocks: a cell holds an edge, so its row has an arrival bit, and a row
+    with none holds only +0.0. The sums and cells are the dense path's."""
     if c.has_delay_dendrite or c.has_multitap or c.has_plugin_comp:
         return None
     device = torch.device(device)
@@ -147,39 +181,101 @@ def build_block_delivery(
         src, dst, edge_weight = (
             src[edge_subset], dst[edge_subset], edge_weight[edge_subset]
         )
-    src_t = src // tile
-    dst_t = dst // tile
-    key = dst_t * n_tiles + src_t  # dest-major so segment ids sort ascending
-    uniq, block_of_edge = np.unique(key, return_inverse=True)
-    n_blocks = len(uniq)
-    cell = (block_of_edge.astype(np.int64) * tile + src % tile) * tile + (
-        dst % tile
-    )
+    # one key a cell, dest-major: (dest tile, source tile, row, column)
+    cell = ((dst // tile * n_tiles + src // tile) * tile + src % tile) * tile \
+        + dst % tile
+    del src, dst
     cells, cell_of_edge = np.unique(cell, return_inverse=True)
+    del cell
     weight_sum = np.bincount(cell_of_edge, weights=edge_weight,
                              minlength=len(cells))
-    count = np.minimum(np.bincount(cell_of_edge, minlength=len(cells)), 127)
-    index = torch.from_numpy(cells).to(device)
-    weights = torch.zeros(n_blocks * tile * tile, dtype=dtype, device=device)
-    weights[index] = torch.from_numpy(weight_sum).to(device=device,
-                                                      dtype=dtype)
-    counts = torch.zeros(n_blocks * tile * tile, dtype=torch.int8,
-                         device=device)
-    counts[index] = torch.from_numpy(count.astype(np.int8)).to(device)
+    block_key = cells // (tile * tile)  # ascending
+    first = _firsts(block_key)
+    uniq = block_key[first]
+    n_blocks = len(uniq)
+    block_of_cell = _ranks(first, len(cells))
     dest_tiles = (uniq // n_tiles).astype(np.int32)
     offsets = np.searchsorted(dest_tiles, np.arange(n_tiles + 1))
-    return BlockDelivery(
+    common = dict(
         tile=tile,
         n_tiles=n_tiles,
         n_pad=n_pad,
         src_tiles=torch.from_numpy((uniq % n_tiles).astype(np.int32)).to(
             device),
         dest_tiles=torch.from_numpy(dest_tiles).to(device),
-        weights=weights.view(n_blocks, tile, tile),
-        counts=counts.view(n_blocks, tile, tile),
         dest_offsets=torch.from_numpy(offsets.astype(np.int32)).to(device),
         max_blocks_per_dest=int(np.diff(offsets).max(initial=0)),
     )
+    values = torch.from_numpy(weight_sum).to(dtype)
+    col = cells % tile
+    if live_only:
+        row_first = _firsts(cells // tile)
+        row_of_cell = _ranks(row_first, len(cells))
+        n_live = len(row_first)
+        words = -(-tile // 32)
+        weights = torch.zeros(n_live * tile, dtype=dtype, device=device)
+        weights[torch.from_numpy(row_of_cell * tile + col).to(device)] = \
+            values.to(device)
+        # the cells are unique and sorted, so each word's bits are one run
+        word = row_of_cell * words + col // 32
+        word_first = _firsts(word)
+        bits = np.left_shift(np.uint32(1), (col % 32).astype(np.uint32))
+        packed = np.zeros(n_live * words, dtype=np.uint32)
+        if len(word_first):
+            packed[word[word_first]] = np.bitwise_or.reduceat(bits,
+                                                              word_first)
+        arrivals = torch.from_numpy(packed.view(np.int32)).to(device)
+        row_key = cells[row_first] // tile  # block * tile + row, ascending
+        row_block = block_of_cell[row_first]
+        live = LiveRows(
+            rows=_padded_rows(row_key % tile, device),
+            offsets=torch.from_numpy(np.searchsorted(
+                row_block, np.arange(n_blocks + 1)).astype(np.int32)).to(
+                device),
+            count=n_live,
+        )
+        return BlockDelivery(
+            **common, weights=weights.view(n_live, tile), counts=None,
+            arrivals=arrivals.view(n_live, words), live_rows=live)
+    index = torch.from_numpy(
+        (block_of_cell * tile + (cells // tile) % tile) * tile + col
+    ).to(device)
+    weights = torch.zeros(n_blocks * tile * tile, dtype=dtype, device=device)
+    weights[index] = values.to(device)
+    counts = torch.zeros(n_blocks * tile * tile, dtype=torch.int8,
+                         device=device)
+    count = np.bincount(cell_of_edge, minlength=len(cells))
+    counts[index] = torch.from_numpy(
+        np.minimum(count, 127).astype(np.int8)).to(device)
+    return BlockDelivery(
+        **common,
+        weights=weights.view(n_blocks, tile, tile),
+        counts=counts.view(n_blocks, tile, tile),
+    )
+
+
+def _firsts(sorted_keys: np.ndarray) -> np.ndarray:
+    """The index of the first of each run of equal keys."""
+    if len(sorted_keys) == 0:
+        return np.zeros(0, dtype=np.int64)
+    return np.flatnonzero(np.concatenate(
+        ([True], sorted_keys[1:] != sorted_keys[:-1])))
+
+
+def _ranks(firsts: np.ndarray, n: int) -> np.ndarray:
+    """For each of ``n`` sorted items, the number of its run
+    (``_firsts``)."""
+    start = np.zeros(n, dtype=np.int64)
+    start[firsts] = 1
+    return np.cumsum(start) - 1
+
+
+def _padded_rows(rows: np.ndarray, device) -> torch.Tensor:
+    """``LiveRows.rows``: the rows as bytes, padded with zeros to a
+    multiple of 16 (at least 16)."""
+    out = np.zeros(max(16, -(-len(rows) // 16) * 16), dtype=np.uint8)
+    out[:len(rows)] = rows
+    return torch.from_numpy(out).to(device)
 
 
 def build_rollup_matrix(c: CompiledChip):
@@ -429,10 +525,11 @@ def make_device_program(
     ``use_kernel`` takes the place of ``use_pallas``: ``None`` means "on
     CUDA" (float32 and float64). With the kernel on, the program is built as
     sanafe_tpu builds it with ``pallas_delivery`` set: no dense delivery
-    columns and no ``block_wc``; and the block's int8 counts give way to
-    the packed arrival plane the kernel reads (``block.arrivals``), beside
-    its checked operands (``block.plan``) with the list of rows it reads
-    (``block.plan.live_rows``). The TPU kernel's ``tile >= 128`` condition
+    columns and no ``block_wc``; and the block holds only its live rows
+    (``block.live_rows``), their weights and packed arrival words
+    (``block.weights``, ``block.arrivals``), built straight from the edges,
+    beside the kernel's checked operands (``block.plan``): never the dense
+    blocks or their int8 counts. The TPU kernel's ``tile >= 128`` condition
     is its (8, 128) layout's; the CUDA kernel takes every tile size. On the
     CPU the default program is sanafe_tpu's default one."""
     c = compiled
@@ -592,32 +689,39 @@ def make_device_program(
         block_edges, blocks_total = rank_block_edges(
             c, block_edges, block_tiling(c.n_neurons)[0],
             *neuron_range(c.n_neurons, rank, world))
-    block = build_block_delivery(c, dtype, device, edge_subset=block_edges)
-    kernel_delivery = False
-    if block is not None:
-        if blocks_total is None:
-            blocks_total = block.weights.shape[0]
-        arrays["block_src_tiles"] = block.src_tiles
-        arrays["block_dest_tiles"] = block.dest_tiles
-        arrays["block_weights"] = block.weights
-        # a conv program never delivers its leftover edges through the
-        # kernel (sanafe_tpu/ops/step.py:942)
-        kernel_delivery = bool(
-            use_kernel and conv_delivery is None and blocks_total > 0
-        )
-        if kernel_delivery:
-            # the kernel needs one bit a cell: keep the packed plane and
-            # let the int8 counts go (a byte a cell, 0.93 GB on a 32k chip)
-            block.arrivals = pack_arrival_plane(block.counts)
-            block.counts = None
-            arrays["block_arrivals"] = block.arrivals
-            # the rows that hold an edge, once (the blocks never change:
-            # set_attributes and load rebuild the program), and the
-            # kernel's operands checked once for every step
+    # a conv program never delivers its leftover edges through the kernel
+    # (sanafe_tpu/ops/step.py:942). The kernel's program holds the blocks'
+    # live rows alone, built straight from the edges, never the dense
+    # blocks, and checks the kernel's operands once for every step (the
+    # blocks never change: set_attributes and load rebuild the program)
+    live_only = bool(use_kernel and conv_delivery is None and (
+        blocks_total > 0 if blocks_total is not None else c.n_edges > 0))
+    with tracing.span("sanafe.setup.delivery",
+                      wall="delivery_build_wall") as built:
+        block = build_block_delivery(c, dtype, device,
+                                     edge_subset=block_edges,
+                                     live_only=live_only)
+        if block is not None and live_only:
             block.plan = plan_delivery(
                 block.weights, block.arrivals, block.src_tiles,
                 block.dest_offsets, block.max_blocks_per_dest,
-                build_live_rows(block.weights, block.arrivals))
+                block.live_rows)
+        # the delivery's counters, for the benchmark (tracing.setups)
+        built.fields["delivery.live_rows"] = (
+            block.live_rows.count if block is not None
+            and block.live_rows is not None else 0)
+        built.fields["delivery.stored_bytes"] = (
+            block.stored_bytes if block is not None else 0)
+    kernel_delivery = False
+    if block is not None:
+        if blocks_total is None:
+            blocks_total = block.n_blocks
+        arrays["block_src_tiles"] = block.src_tiles
+        arrays["block_dest_tiles"] = block.dest_tiles
+        arrays["block_weights"] = block.weights
+        kernel_delivery = live_only
+        if kernel_delivery:
+            arrays["block_arrivals"] = block.arrivals
         else:
             arrays["block_counts"] = block.counts
     sync_delay = c.arch.ts_sync_delay_table.get(c.mapped_tiles)
@@ -951,7 +1055,7 @@ def _timestep(prog: DeviceProgram, a, state, t, feeds=None,
         # one strided convolution per conv2d hyperedge, plus block delivery
         # of the leftover edges on top
         buffer_current, any_input = conv_deliver(prog, a, fired_f)
-        if prog.block is not None and prog.block.weights.shape[0] > 0:
+        if prog.block is not None and prog.block.n_blocks > 0:
             blk_cur, blk_any = _block_deliver(prog, a, fired_f, n)
             buffer_current = buffer_current + blk_cur
             any_input = any_input | blk_any
@@ -1232,7 +1336,7 @@ def _block_deliver(prog: DeviceProgram, a, fired_f, n: int):
             return (acc.reshape(rows, -1)[:, :n],
                     arrived.reshape(rows, -1)[:, :n])
         return _block_deliver_rows(prog, a, fired_f, n)
-    if blk.weights.shape[0] == 0:
+    if blk.n_blocks == 0:
         return (torch.zeros(n, dtype=dtype, device=prog.device),
                 torch.zeros(n, dtype=torch.bool, device=prog.device))
     fired_pad = torch.zeros(blk.n_pad, dtype=dtype, device=prog.device)
@@ -1268,7 +1372,7 @@ def _block_deliver_rows(prog: DeviceProgram, a, fired_rows, n: int):
     takes none)."""
     blk = prog.block
     rows = fired_rows.shape[0]
-    if blk.weights.shape[0] == 0:
+    if blk.n_blocks == 0:
         return (torch.zeros((rows, n), dtype=prog.dtype, device=prog.device),
                 torch.zeros((rows, n), dtype=torch.bool, device=prog.device))
     fired_pad = torch.zeros((rows, blk.n_pad), dtype=prog.dtype,

@@ -37,6 +37,10 @@ work (``steps``, ``spikes``), as its fields. The names::
         sanafe.sweep.readback       the wait for the chunk's stats on the host
     sanafe.setup.load               SpikingChip.load (setup_wall)
     sanafe.setup.sweep              ParameterSweep's build
+    sanafe.setup.delivery           a program's block delivery built: the
+                                    live rows on the kernel's path
+                                    (delivery_build_wall), within
+                                    sanafe.setup.engine or .setup.sweep
 
 On the CPU a program built with ``graph`` set runs each block eagerly, in
 a ``sanafe.replay`` span all the same. Spans go per call, chunk and replay,
@@ -56,6 +60,13 @@ Two modes, switched by whether a ``torch.profiler`` is recording:
 To see the spans, run the calls under ``torch.profiler.profile`` and open
 the file that ``prof.export_chrome_trace(path)`` writes (in Perfetto or
 ``chrome://tracing``); or read ``spans()`` in the same process.
+
+In both modes the process also keeps every finished set-up span
+(``sanafe.setup.*``, one a load or a build) for a reader in the same
+process (the benchmark): ``setups()``. A ``sanafe.setup.delivery`` span
+carries its program's delivery counters as fields: ``delivery.live_rows``
+(the live rows it holds; 0 where it holds the dense blocks) and
+``delivery.stored_bytes`` (the bytes of its device arrays).
 """
 
 from __future__ import annotations
@@ -70,6 +81,8 @@ import torch
 from torch.autograd import profiler as _profiler
 
 CAPACITY = 65536
+SETUP = "sanafe.setup."
+SETUP_CAPACITY = 4096
 _RecordFunction = getattr(torch._C._profiler, "_RecordFunctionFast",
                           torch.profiler.record_function)
 
@@ -98,6 +111,7 @@ _lock = threading.Lock()
 _store: collections.deque = collections.deque(maxlen=CAPACITY)
 _ids = itertools.count(1)
 _drops = [0, 0]  # spans dropped, and the end of the newest dropped
+_setups: collections.deque = collections.deque(maxlen=SETUP_CAPACITY)
 
 
 class span:
@@ -153,6 +167,10 @@ class span:
             thread.stack.pop()
             _keep(Span(sid, parent, call, self.name, self.start, end,
                        self.fields))
+        if self.name.startswith(SETUP):
+            with _lock:
+                _setups.append(Span(0, None, None, self.name, self.start,
+                                    end, self.fields))
 
 
 def _keep(record: Span) -> None:
@@ -177,3 +195,11 @@ def dropped(since_ns: int = 0) -> int:
     at or after ``since_ns`` (so some may have started there); else 0."""
     with _lock:
         return _drops[0] if _drops[0] and _drops[1] >= since_ns else 0
+
+
+def setups() -> list:
+    """Every set-up span (``sanafe.setup.*``) the process has finished,
+    with or without a profiler, oldest first (the newest ``SETUP_CAPACITY``
+    of them)."""
+    with _lock:
+        return list(_setups)

@@ -101,11 +101,17 @@ def main() -> int:
     sweep = st.ParameterSweep(chip, {"threshold": st.expand_group_values(
         chip.compiled, "threshold", {"pop": values})})
     sweep_x = chip_smoke.sweep_plane(sweep, chip_smoke.PARAM_CAPTURE_STEP)
-    blk = sweep.prog.block
+    blk = sweep.prog.block  # the live rows alone
+    dblk = chip_smoke.dense_of(blk)  # the dense blocks again
     live = sweep.arrays["block_live_rows"]
-    every = delivery.every_row_live(blk.weights.shape[0], blk.tile, "cuda")
-    shared = (blk.weights, blk.arrivals, blk.src_tiles, blk.dest_offsets,
+    every = delivery.every_row_live(blk.n_blocks, blk.tile, "cuda")
+    # the plain version (and an older kernel) take the dense blocks; the
+    # kernels the listed rows alone
+    shared = (dblk.weights, dblk.arrivals, blk.src_tiles, blk.dest_offsets,
               blk.max_blocks_per_dest)
+    held = {id(rows): delivery.compact_blocks(dblk.weights, dblk.arrivals,
+                                              rows)[1:]
+            for rows in (live, every)}
     one_x = torch.from_numpy(one).to(device="cuda", dtype=torch.float32).view(
         blk.n_tiles, blk.tile)
 
@@ -116,7 +122,8 @@ def main() -> int:
 
     def runner(label, rows):
         if label == "new":
-            return lambda x: delivery.delivery_batch_kernel(x, *shared, rows)
+            return lambda x: delivery.delivery_batch_kernel(
+                x, *held[id(rows)], *shared[2:], rows)
         if old_takes_list:
             return lambda x: old.delivery_batch_kernel(x, *shared, rows)
         return lambda x: old.delivery_batch_kernel(x, *shared)
@@ -154,11 +161,11 @@ def main() -> int:
 
     def sixteen():
         for _ in range(chip_smoke.PARAM_SAMPLES):
-            delivery.delivery_kernel(x1, *shared, live)
+            delivery.delivery_kernel(x1, *held[id(live)], *shared[2:], live)
 
     single_ms = chip_smoke.queued_ms(sixteen, 3)
-    dense = chip_smoke.dense_weights(blk)
-    csr = chip_smoke.csr_weights(blk)
+    dense = chip_smoke.dense_weights(dblk)
+    csr = chip_smoke.csr_weights(dblk)
     for kind, x in (("step50", one_x.expand(chip_smoke.PARAM_SAMPLES, -1,
                                             -1).contiguous()),
                     ("sweep", sweep_x)):
@@ -166,8 +173,8 @@ def main() -> int:
         rhs = lhs.t().contiguous()
         mm_ms = chip_smoke.queued_ms(lambda: torch.mm(lhs, dense), REPS)
         sp_ms = chip_smoke.queued_ms(lambda: torch.sparse.mm(csr, rhs), REPS)
-        cur = delivery.delivery_batch_kernel(x, *shared, live)[0].reshape(
-            x.shape[0], -1)
+        cur = delivery.delivery_batch_kernel(
+            x, *held[id(live)], *shared[2:], live)[0].reshape(x.shape[0], -1)
         err = max(float((torch.mm(lhs, dense) - cur).abs().max()),
                   float((torch.sparse.mm(csr, rhs).t() - cur).abs().max()))
         print(f"batch_delivery: {kind} B={x.shape[0]} library calls, queued "

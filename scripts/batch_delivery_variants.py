@@ -119,16 +119,19 @@ def main() -> int:
     libs = build()
     compiled = compile_chip(*chip_smoke.random_chip(st, **chip_smoke.FULL))
     blk = make_device_program(compiled, "cuda", torch.float32).block
-    lists = {"live": delivery.build_live_rows(blk.weights, blk.arrivals),
-             "every": delivery.every_row_live(blk.weights.shape[0], blk.tile,
+    dblk = chip_smoke.dense_of(blk)  # the program holds the live rows alone
+    lists = {"live": blk.live_rows,
+             "every": delivery.every_row_live(blk.n_blocks, blk.tile,
                                               "cuda")}
     fired = torch.zeros(blk.n_pad, device="cuda")
     fired[: compiled.n_neurons] = 1.0
     fired = fired.view(blk.n_tiles, blk.tile)
-    shared = (blk.weights, blk.arrivals, blk.src_tiles, blk.dest_offsets,
+    # the plain version takes the dense blocks, the kernel the listed rows
+    shared = (dblk.weights, dblk.arrivals, blk.src_tiles, blk.dest_offsets,
               blk.max_blocks_per_dest)
     ours = delivery._batch_library
     for kind, rows in lists.items():
+        held = delivery.compact_blocks(dblk.weights, dblk.arrivals, rows)[1:]
         for samples in SAMPLES:
             x = fired.expand(samples, -1, -1).contiguous()
             times = {}
@@ -136,8 +139,8 @@ def main() -> int:
                 delivery._batch_library = lambda lib=lib: lib
                 try:
                     def run():
-                        return delivery.delivery_batch_kernel(x, *shared,
-                                                              rows)
+                        return delivery.delivery_batch_kernel(
+                            x, *held, *shared[2:], rows)
                     if name == "as_built":
                         ref = delivery.delivery_batch_plain(x, *shared)
                         got = run()

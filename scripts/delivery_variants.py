@@ -207,8 +207,10 @@ def main() -> int:
         blk = build_block_delivery(compiled, dtype, "cuda")
         plane = delivery.pack_arrival_plane(blk.counts)
         live = delivery.build_live_rows(blk.weights, plane)
-        args = (blk.weights, plane, blk.src_tiles, blk.dest_offsets,
-                blk.max_blocks_per_dest, live)
+        # the kernel takes the listed rows alone
+        args = (*delivery.compact_blocks(blk.weights, plane, live)[1:],
+                blk.src_tiles, blk.dest_offsets, blk.max_blocks_per_dest,
+                live)
         for share in shares:
             x = fired_plane(blk, compiled.n_neurons, share, dtype)
             times = {}

@@ -118,7 +118,12 @@ def main() -> int:
                     blk.max_blocks_per_dest)
             if listed:
                 args += (live,)
-            cur, arrived = delivery.delivery_kernel(*args)
+            # a kernel that holds the listed rows alone takes those rows
+            kargs = args
+            if listed and hasattr(delivery, "compact_blocks"):
+                kargs = (x, *delivery.compact_blocks(
+                    blk.weights, third, live)[1:], *args[3:])
+            cur, arrived = delivery.delivery_kernel(*kargs)
             ref_cur, ref_cnt = delivery.delivery_plain(
                 x, blk.weights, blk.counts, blk.src_tiles, blk.dest_offsets,
                 blk.max_blocks_per_dest)
@@ -139,10 +144,10 @@ def main() -> int:
                 fired_live = cs.live_fired(x[None], blk, live)[0]
                 extra = f" live rows fired {fired_live} of {live.count}"
             if listed:
-                plan = delivery.plan_delivery(*args[1:])
+                plan = delivery.plan_delivery(*kargs[1:])
                 ms = cs.queued_ms(lambda: delivery.delivery_launch(x, plan),
                                   50)
-                bplan = delivery.plan_delivery_batch(1, *args[1:])
+                bplan = delivery.plan_delivery_batch(1, *kargs[1:])
                 xb = x[None].contiguous()
                 batch_ms = cs.queued_ms(
                     lambda: delivery.delivery_batch_launch(xb, bplan), 50)
@@ -161,7 +166,7 @@ def main() -> int:
                   flush=True)
             if not close:
                 return 1
-        del blk, third, args, cur, arrived, ref_cur, ref_cnt, x, live
+        del blk, third, args, kargs, cur, arrived, ref_cur, ref_cnt, x, live
         torch.cuda.empty_cache()
 
     if opts.skip_chunk:

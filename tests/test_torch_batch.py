@@ -11,11 +11,14 @@ with one override dict in sanafe_tpu's names and layouts:
   sweep (the fused roll-up kept): counters equal, energies within 1e-6;
 - a conv-filter sweep, its HWIO override carried to the port's OIHW by
   ``ops/conv.py:hwio_to_oihw``; a delay-dendrite chip (scatter delivery);
-- a kernel-delivery program (``use_kernel=True`` on the CPU: packed arrival
-  planes through ``delivery_batch_plain``), also with ``block_weights`` and
-  ``block_counts`` swept per sample;
+- a kernel-delivery program (``use_kernel=True`` on the CPU: the live rows
+  alone, summed in the kernel's order), also with ``block_weights`` and
+  ``block_counts`` swept per sample (compacted to the rows live in any
+  sample);
 - ``delivery_batch_plain`` against ``delivery_packed_plain`` sample by
-  sample, ``expand_group_values`` and the error cases;
+  sample, and the batched wrapper's CPU sums over the listed rows against
+  both and against ``delivery_live_plain`` bit for bit,
+  ``expand_group_values`` and the error cases;
 - plugin somas: a threshold and a stimulation-current sweep of the
   Hodgkin-Huxley chip (shared unit state) against sanafe_tpu's, also
   through the kernel path, and each sample against a single chip; a
@@ -23,8 +26,9 @@ with one override dict in sanafe_tpu's names and layouts:
   sanafe_tpu's without noise, and with noise each sample against the
   port's single chip (the step's draws are shared by the samples).
 
-On the CPU the batched delivery kernel's wrapper takes its plain version;
-``tests/test_torch_cuda.py`` holds the CUDA kernel to it on the card.
+On the CPU the batched delivery kernel's wrapper sums in the kernel's
+order; ``tests/test_torch_cuda.py`` holds the CUDA kernel to the plain
+versions on the card.
 """
 
 import functools
@@ -43,8 +47,10 @@ from sanafe_tpu_torch.ops import step as port_step
 from sanafe_tpu_torch.ops.conv import hwio_to_oihw
 from sanafe_tpu_torch.ops.delivery import (
     build_live_rows,
+    compact_blocks,
     delivery_batch_kernel,
     delivery_batch_plain,
+    delivery_live_plain,
     delivery_packed_plain,
     pack_arrival_plane,
 )
@@ -260,7 +266,8 @@ def _blocks(dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_delivery_batch_plain_matches_packed_plain(dtype):
     """Sample by sample: exact on the chip's integer weights, within 1e-12
-    in float64 on seeded real weights (the products group differently);
+    in float64 on seeded real weights (the products group differently; the
+    wrapper's list-order sums equal ``delivery_live_plain``'s bits);
     per-sample weights and arrival planes too."""
     n, blk, plane = _blocks(dtype)
     rng = np.random.default_rng(4)
@@ -286,9 +293,15 @@ def test_delivery_batch_plain_matches_packed_plain(dtype):
         args = (weights, arrivals, blk.src_tiles, blk.dest_offsets,
                 blk.max_blocks_per_dest)
         cur, arrived = delivery_batch_plain(x, *args)
-        kcur, karrived = delivery_batch_kernel(  # CPU: the plain version
-            x, *args, build_live_rows(weights, arrivals))
-        assert torch.equal(cur, kcur) and torch.equal(arrived, karrived)
+        # CPU: the kernel's sums in list order over the listed rows alone
+        live, rows, words = compact_blocks(weights, arrivals)
+        kcur, karrived = delivery_batch_kernel(x, rows, words, *args[2:],
+                                               live)
+        assert torch.equal(arrived, karrived)
+        if exact:
+            assert torch.equal(cur, kcur)
+        else:
+            torch.testing.assert_close(kcur, cur, rtol=1e-12, atol=1e-12)
         assert cur.shape == (len(rates), blk.n_tiles, blk.tile)
         for b in range(len(rates)):
             w_b = weights[b] if weights.dim() == 4 else weights
@@ -302,6 +315,12 @@ def test_delivery_batch_plain_matches_packed_plain(dtype):
             else:
                 torch.testing.assert_close(cur[b], one_cur, rtol=1e-12,
                                            atol=1e-12)
+            # the kernel's order is the list's, bit for bit
+            live_cur, live_arrived = delivery_live_plain(
+                x[b], w_b, a_b, *args[2:], build_live_rows(w_b, a_b))
+            bits = torch.int64 if dtype == torch.float64 else torch.int32
+            assert torch.equal(kcur[b].view(bits), live_cur.view(bits)), b
+            assert torch.equal(karrived[b], live_arrived), b
         assert not arrived[0].any() and arrived[3].any()
 
 

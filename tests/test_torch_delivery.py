@@ -14,11 +14,11 @@
 - What the CUDA kernel reads instead of the int8 counts, the packed arrival
   plane (``pack_arrival_plane``), unpacked with numpy equals ``counts > 0``
   of sanafe_tpu's ``build_block_delivery``; ``delivery_packed_plain`` and
-  the wrapper's path for CPU tensors (``delivery_live_plain`` over the
-  live-row list) equal ``delivery_plain``'s currents and ``cnt > 0``. All
-  exact: masks and integer weights.
-- The ``cuda`` tests hold the CUDA kernel (given ``build_live_rows`` of the
-  blocks) to ``delivery_plain`` on the card
+  the wrapper's path for CPU tensors (the same sum over the listed rows
+  alone, ``compact_blocks``) equal ``delivery_plain``'s currents and
+  ``cnt > 0``. All exact: masks and integer weights.
+- The ``cuda`` tests hold the CUDA kernel (given the listed rows of the
+  blocks, ``compact_blocks``) to ``delivery_plain`` on the card
   (``python -m pytest tests/test_torch_delivery.py -m cuda --noconftest``),
   currents exact on integer weights and arrivals equal to ``cnt > 0``, and
   to ``delivery_live_plain`` bit for bit, on the random chip and on edge
@@ -35,6 +35,7 @@ import torch
 import sanafe_tpu_torch
 from sanafe_tpu_torch.ops.delivery import (
     build_live_rows,
+    compact_blocks,
     delivery_kernel,
     delivery_live_plain,
     delivery_packed_plain,
@@ -221,11 +222,21 @@ def test_arrival_plane_matches_jax_counts(name):
     assert torch.equal(unpack_arrival_plane(plane, pb.tile), pb.counts > 0)
 
 
-def kernel_args(pb, x):
+def dense_args(pb, x):
+    """``delivery_live_plain``'s arguments: the dense blocks, their packed
+    plane and ``build_live_rows`` of them."""
     plane = pack_arrival_plane(pb.counts)
     return (x.view(pb.n_tiles, pb.tile), pb.weights, plane, pb.src_tiles,
             pb.dest_offsets, pb.max_blocks_per_dest,
             build_live_rows(pb.weights, plane))
+
+
+def kernel_args(pb, x):
+    """``delivery_kernel``'s arguments: the listed rows alone
+    (``compact_blocks`` of ``dense_args``'s blocks)."""
+    x, weights, plane, *meta, live = dense_args(pb, x)
+    _, rows, words = compact_blocks(weights, plane, live)
+    return (x, rows, words, *meta, live)
 
 
 def plain_args(pb, x):
@@ -245,8 +256,8 @@ def test_delivery_kernel_takes_plain_for_cpu_tensors():
     before = delivery_kernel.launches
     a = delivery_kernel(*kernel_args(pb, x))
     b = delivery_plain(*plain_args(pb, x))
-    c = delivery_packed_plain(*kernel_args(pb, x)[:-1])
-    d = delivery_live_plain(*kernel_args(pb, x))
+    c = delivery_packed_plain(*dense_args(pb, x)[:-1])
+    d = delivery_live_plain(*dense_args(pb, x))
     assert delivery_kernel.launches == before
     assert a[1].dtype == torch.bool
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1] > 0)
@@ -270,7 +281,7 @@ def hold_kernel_to_plain(pb, x):
     assert cur.dtype == x.dtype and arrived.dtype == torch.bool
     assert torch.equal(cur, ref_cur)
     assert torch.equal(arrived, ref_cnt > 0)
-    live_cur, live_arrived = delivery_live_plain(*kernel_args(pb, x))
+    live_cur, live_arrived = delivery_live_plain(*dense_args(pb, x))
     assert torch.equal(cur.view(torch.uint8), live_cur.view(torch.uint8))
     assert torch.equal(arrived, live_arrived)
     return arrived

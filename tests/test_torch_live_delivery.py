@@ -21,11 +21,15 @@ within a block). It is held here:
   row in block order (a row left out adds +-0.0 and changes no bit);
 - to ``delivery_batch_plain`` at one sample on integer weights.
 
-A kernel-delivery program (``use_kernel=True``; the CPU runs the plain
-version) carries ``build_live_rows`` of its blocks and the kernel's
-operands checked once (``plan_delivery``), whose entries are the list in
-list order; ``tests/test_torch_scan.py`` checks that its scans go through
-it, and ``tests/test_torch_parallel.py`` each rank's program on a mesh.
+The wrappers take the listed rows alone (``compact_blocks``); over them
+they equal ``delivery_live_plain`` on the dense blocks bit for bit, one
+sample and batched. A kernel-delivery program (``use_kernel=True``; the
+CPU runs the same sum) builds those rows straight from its edges, equal to
+``build_live_rows`` and ``compact_blocks`` of the dense blocks, and the
+kernel's operands checked once (``plan_delivery``), whose entries are the
+list in list order; ``tests/test_torch_scan.py`` checks that its scans go
+through it, and ``tests/test_torch_parallel.py`` each rank's program on a
+mesh.
 
 The kernel itself is held to ``delivery_live_plain`` and to
 ``delivery_batch_kernel`` at one sample on the card
@@ -39,10 +43,13 @@ import torch
 from sanafe_tpu_torch.ops.delivery import (
     LiveRows,
     build_live_rows,
+    compact_blocks,
+    delivery_batch_kernel,
     delivery_batch_plain,
     delivery_kernel,
     delivery_live_plain,
     delivery_plain,
+    dense_blocks,
     live_entries,
     pack_arrival_plane,
 )
@@ -57,13 +64,21 @@ DTYPES = {"f32": (torch.float32, np.float32), "f64": (torch.float64,
 
 
 def live_args(blk, x, weights=None, counts=None):
-    """``delivery_kernel``'s arguments for the fired plane ``x`` (0/1,
-    [n_tiles, tile]), over ``weights`` / ``counts`` (default the block's),
-    with ``build_live_rows`` of them."""
+    """``delivery_live_plain``'s arguments for the fired plane ``x`` (0/1,
+    [n_tiles, tile]), over the dense ``weights`` / ``counts`` (default the
+    block's), with ``build_live_rows`` of them."""
     weights = blk.weights if weights is None else weights
     plane = pack_arrival_plane(blk.counts if counts is None else counts)
     return (x, weights, plane, blk.src_tiles, blk.dest_offsets,
             blk.max_blocks_per_dest, build_live_rows(weights, plane))
+
+
+def kernel_args(args):
+    """``delivery_kernel``'s arguments for ``live_args``'s: the listed rows
+    of the dense blocks alone (``compact_blocks``)."""
+    x, weights, plane, *meta, live = args
+    _, rows, words = compact_blocks(weights, plane, live)
+    return (x, rows, words, *meta, live)
 
 
 def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -220,20 +235,91 @@ def test_live_plain_matches_batch_plain_at_one_sample(pattern, dtype):
                                                     *args[1:])
     assert same_bits(cur, batch_cur[0])
     assert torch.equal(arrived, batch_arrived[0])
-    kernel_cur, kernel_arrived = delivery_kernel(*args)  # CPU: the plain
+    # CPU: the wrapper's sum over the compact rows
+    kernel_cur, kernel_arrived = delivery_kernel(*kernel_args(args))
     assert same_bits(cur, kernel_cur) and torch.equal(arrived,
                                                       kernel_arrived)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("tile", [8, 64, 256])
+def test_compact_rows_match_dense_blocks(tile, dtype):
+    """The wrappers over the compact live rows (``compact_blocks``: the
+    listed rows alone, in list order) equal ``delivery_live_plain`` over
+    the dense blocks bit for bit, with a destination tile without blocks,
+    rows left out of the list (-0.0 alone), NaN and inf rows and a row
+    live by an arrival bit alone: one sample, and batched with shared and
+    per-sample rows (each sample its own plane and weights, compacted to
+    the union of their live rows)."""
+    blk, weights, counts = special_blocks(tile, DTYPES[dtype][1])
+    rng = np.random.default_rng(7 + tile)
+    planes = rng.random((3, blk.n_tiles, tile)) < 0.5
+    planes[1] = False  # a sample that fires nothing
+    src = blk.src_tiles.numpy()
+    planes[2, src[0], 1] = True  # the NaN row fires
+    x = torch.from_numpy(planes.astype(weights.dtype))
+    args = live_args(blk, x[0])
+    live = args[-1]
+    compact = kernel_args(args)
+    assert compact[1].shape == (live.count, tile)
+    assert compact[2].shape == (live.count, -(-tile // 32))
+    assert 0 < live.count < weights.shape[0] * tile
+    # dense_blocks lays the rows out again, zeros elsewhere: the same list
+    # and rows come back
+    dense_w, dense_a = dense_blocks(compact[1], compact[2], live,
+                                    weights.shape[0])
+    again, rows, words = compact_blocks(dense_w, dense_a)
+    # either alone, at the tile given (the other left out)
+    alone_w, none_a = dense_blocks(compact[1], None, live, weights.shape[0],
+                                   tile)
+    none_w, alone_a = dense_blocks(None, compact[2], live, weights.shape[0],
+                                   tile)
+    assert none_a is None and none_w is None
+    assert same_bits(alone_w, dense_w) and torch.equal(alone_a, dense_a)
+    assert torch.equal(again.rows, live.rows)
+    assert torch.equal(again.offsets, live.offsets)
+    assert same_bits(rows, compact[1]) and torch.equal(words, compact[2])
+    per_sample = []
+    for b in range(3):
+        want = delivery_live_plain(x[b], *args[1:])
+        got = delivery_kernel(x[b], *compact[1:])
+        assert same_bits(got[0], want[0]) and torch.equal(got[1], want[1])
+        per_sample.append(want)
+    batch_cur, batch_arrived = delivery_batch_kernel(x, *compact[1:])
+    for b, (cur, arrived) in enumerate(per_sample):
+        assert same_bits(batch_cur[b], cur)
+        assert torch.equal(batch_arrived[b], arrived)
+    # one set a sample: sample b scales the weights by b + 1 and keeps
+    # every (b + 1)-th row's edges; the list is the union of their rows
+    keep = np.stack([(np.arange(tile) % (b + 1) == 0) for b in range(3)])
+    dense_w = torch.from_numpy(np.stack([
+        np.where(keep[b][None, :, None], weights * (b + 1), 0).astype(
+            weights.dtype) for b in range(3)]))
+    dense_a = torch.stack([pack_arrival_plane(torch.from_numpy(
+        counts * keep[b][None, :, None])) for b in range(3)])
+    union, rows, words = compact_blocks(dense_w, dense_a)
+    assert rows.shape == (3, union.count, tile)
+    got_cur, got_arrived = delivery_batch_kernel(
+        x, rows, words, *args[3:6], union)
+    for b in range(3):
+        cur, arrived = delivery_live_plain(
+            x[b], dense_w[b], dense_a[b], *args[3:6],
+            build_live_rows(dense_w[b], dense_a[b]))
+        assert same_bits(got_cur[b], cur)
+        assert torch.equal(got_arrived[b], arrived)
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("name", ["random1024", "random2048", "stochastic",
                                   "example"])
 def test_kernel_program_carries_live_rows(name, dtype):
-    """``make_device_program(use_kernel=True)`` builds the list once from
-    its blocks, beside the packed arrival plane, and checks the kernel's
-    operands once: the plan's entries are the list in list order, each
-    destination tile's contiguous. A program without the kernel has no
-    list."""
+    """``make_device_program(use_kernel=True)`` builds the list and the
+    live rows alone straight from the edges: the list ``build_live_rows``
+    gives of the dense blocks, and those blocks' listed rows and packed
+    arrival words, bit for bit; and it checks the kernel's operands once:
+    the plan's entries are the list in list order, each destination
+    tile's contiguous. A program without the kernel has no list and holds
+    the dense blocks."""
     torch_dtype = DTYPES[dtype][0]
     _, port_compiled = compile_both(name)
     prog = make_device_program(port_compiled, "cpu", torch_dtype,
@@ -242,10 +328,23 @@ def test_kernel_program_carries_live_rows(name, dtype):
     assert prog.kernel_delivery and blk.counts is None
     plan = blk.plan
     live = plan.live_rows
-    want = build_live_rows(blk.weights, blk.arrivals)
+    assert live is blk.live_rows
+    dense = build_block_delivery(port_compiled, torch_dtype, "cpu")
+    want, rows, words = compact_blocks(
+        dense.weights, pack_arrival_plane(dense.counts))
     assert isinstance(live, LiveRows) and live.count == want.count > 0
     assert torch.equal(live.rows, want.rows)
     assert torch.equal(live.offsets, want.offsets)
+    assert same_bits(blk.weights, rows) and torch.equal(blk.arrivals, words)
+    for key in ("src_tiles", "dest_tiles", "dest_offsets"):
+        assert torch.equal(getattr(blk, key), getattr(dense, key))
+    assert blk.max_blocks_per_dest == dense.max_blocks_per_dest
+    assert blk.n_blocks == dense.weights.shape[0]
+    held = [blk.weights, blk.arrivals, blk.src_tiles, blk.dest_tiles,
+            blk.dest_offsets, live.rows, live.offsets, plan.entries,
+            plan.tile_entries]
+    assert blk.stored_bytes == sum(
+        x.numel() * x.element_size() for x in held)
     assert plan.launch is None
     assert plan.weights is blk.weights and plan.arrivals is blk.arrivals
     assert plan.shape == (blk.n_tiles, blk.tile)
@@ -253,15 +352,15 @@ def test_kernel_program_carries_live_rows(name, dtype):
                                          blk.dest_offsets, blk.tile)
     assert torch.equal(plan.entries, entries)
     assert torch.equal(plan.tile_entries, tile_entries)
-    # entry by entry: block b's live row i is (b * tile + i, its source
+    # entry by entry: block b's live row i is (its compact row, its source
     # neuron), in list order, and destination tile d's entries are those
     # of its blocks
     offsets = live.offsets.numpy()
     src = blk.src_tiles.numpy()
-    expect = [(b * blk.tile + int(i), src[b] * blk.tile + int(i))
+    expect = [src[b] * blk.tile + int(i)
               for b in range(len(src))
               for i in live.rows[offsets[b]:offsets[b + 1]].numpy()]
-    assert entries.tolist() == [list(e) for e in expect]
+    assert entries.tolist() == [[r, e] for r, e in enumerate(expect)]
     dest = blk.dest_offsets.numpy()
     np.testing.assert_array_equal(tile_entries.numpy(), offsets[dest])
     plain = make_device_program(port_compiled, "cpu", torch_dtype)
@@ -275,7 +374,7 @@ def test_delivery_kernel_refuses_other_devices():
     count is not its offsets' end."""
     blk, weights, counts = special_blocks(8, np.float32)
     x = torch.ones((blk.n_tiles, blk.tile))
-    args = live_args(blk, x)
+    args = kernel_args(live_args(blk, x))
     meta = [a.to("meta") if isinstance(a, torch.Tensor) else a
             for a in args[:-1]]
     with pytest.raises(ValueError, match="unsupported device"):

@@ -179,11 +179,20 @@ def _rank_main(rank: int, world: int, store: str, out: str, jax_npz: str):
         res["active_sticky"] = chip._mesh is mesh
 
         # a kernel-delivery program on each rank (the CPU runs the kernel's
-        # plain version), built from the rank's own blocks with their list
+        # sums), built from the rank's own edges: their blocks' live rows
         import functools
 
         import sanafe_tpu_torch.chip as port_chip
-        from sanafe_tpu_torch.ops.delivery import build_live_rows
+        from sanafe_tpu_torch.ops.delivery import (
+            build_live_rows,
+            compact_blocks,
+            pack_arrival_plane,
+        )
+        from sanafe_tpu_torch.ops.step import (
+            block_tiling,
+            build_block_delivery,
+        )
+        from sanafe_tpu_torch.parallel import block_edges, neuron_range
 
         build = port_chip.make_device_program
         port_chip.make_device_program = functools.partial(build,
@@ -197,14 +206,24 @@ def _rank_main(rank: int, world: int, store: str, out: str, jax_npz: str):
             port_chip.make_device_program = build
         prog = next(iter(chip._engines.values())).prog
         blk = prog.block
-        want = build_live_rows(blk.weights, blk.arrivals)
+        c = prog.compiled
+        owned, _ = block_edges(c, None, block_tiling(c.n_neurons)[0],
+                               *neuron_range(c.n_neurons, rank, world))
+        dense = build_block_delivery(c, prog.dtype, "cpu",
+                                     edge_subset=owned)
+        plane = pack_arrival_plane(dense.counts)
+        want = build_live_rows(dense.weights, plane)
+        _, rows, words = compact_blocks(dense.weights, plane, want)
         (out / f"kernel_mesh_r{rank}.pkl").write_bytes(pickle.dumps({
             "kernel": prog.kernel_delivery and prog.shard is not None,
             "count": blk.plan.live_rows.count,
             "equal": (blk.plan.live_rows.count == want.count
                       and torch.equal(blk.plan.live_rows.rows, want.rows)
                       and torch.equal(blk.plan.live_rows.offsets,
-                                      want.offsets)),
+                                      want.offsets)
+                      and torch.equal(blk.weights.view(torch.int64),
+                                      rows.view(torch.int64))
+                      and torch.equal(blk.arrivals, words)),
             "planned": blk.plan.weights is blk.weights,
             "tiles": sorted(set(blk.dest_tiles.tolist())),
         }))
@@ -459,8 +478,9 @@ def test_block_edges_deliver_each_rank_whole(world):
 
 
 def test_kernel_program_on_the_mesh(ranks, tmp_path):
-    """Each rank's kernel-delivery program carries the live-row list of its
-    own blocks (``build_live_rows`` of them), the ranks' destination tiles
+    """Each rank's kernel-delivery program holds the live rows of its own
+    blocks alone (``build_live_rows`` and ``compact_blocks`` of the dense
+    blocks of the rank's edges), the ranks' destination tiles
     cover the chip, and the sharded run through the lists gives one
     process's spike raster and counters."""
     world, out, res = ranks

@@ -16,6 +16,9 @@ hold
   ``sanafe.replay`` / ``sanafe.sweep.readback``;
 - a sharded sim (one gloo rank) to ``sanafe.exchange`` spans under its
   chunks, which feed ``chip.exchange_wall`` and ``chip.exchanges``;
+- a kernel-delivery program's set-up span to ``tracing.setups()``, with
+  its delivery counters, and their readers
+  (``benchmark/metrics/delivery.stored_mib.py``, ``setup.delivery_s.py``);
 - the benchmark's span readers (``benchmark/metrics/replay.host_ms.py``,
   ``chip.wait_ms_per_call.py``, ``chip.trace_ms_per_step.py``) to a
   synthetic store: the window's spans only, None where the store dropped
@@ -49,6 +52,7 @@ from test_torch_chips import (
 PARENT = {
     "sanafe.sim.prepare": "sanafe.sim",
     "sanafe.setup.engine": "sanafe.sim.prepare",
+    "sanafe.setup.delivery": "sanafe.setup.engine",
     "sanafe.chunk": "sanafe.sim",
     "sanafe.replay": "sanafe.chunk",
     "sanafe.replay.feeds": "sanafe.replay",
@@ -71,6 +75,8 @@ WALLS = {
     "energy_stats_wall": ("sanafe.book.stats",),
     "scheduler_wall": ("sanafe.book.sweep",),
 }
+# walls that are a part of one above, and the spans that feed them
+PART_WALLS = {"delivery_build_wall": ("sanafe.setup.delivery",)}
 # name: (builder, dtype, sim keywords, the replay's children)
 ENGINES = {
     "scan": (random_chip, torch.float64,
@@ -113,7 +119,7 @@ def by_name(spans) -> dict:
 
 
 def walls(chip) -> dict:
-    return {key: getattr(chip, key) for key in WALLS}
+    return {key: getattr(chip, key) for key in (*WALLS, *PART_WALLS)}
 
 
 def assert_nested(spans) -> dict:
@@ -173,6 +179,7 @@ def test_sim_gives_one_span_tree(graph_form, engine):
     assert sum(s.fields["spikes"] for s in named["sanafe.book.traces"]) == (
         result["neurons_fired"])
     assert len(named["sanafe.setup.engine"]) == 1
+    assert len(named["sanafe.setup.delivery"]) == 1
     assert len(named["sanafe.sim.prepare"]) == 1
     assert len(named["sanafe.sim.finish"]) == 1
     events = collections.Counter(e.name for e in prof.events()
@@ -184,7 +191,8 @@ def test_sim_gives_one_span_tree(graph_form, engine):
 def test_walls_are_the_sums_of_their_spans(graph_form, engine):
     """With no profiler the store keeps no span and the walls grow; under
     the profiler each wall of ``wall_time`` grows by exactly the sum of
-    the spans that feed it, load and the engine's build included."""
+    the spans that feed it, load and the engine's build included, and so
+    does ``delivery_build_wall``, a part of ``setup_wall``."""
     builder, dtype, kwargs, _ = ENGINES[engine]
     plain, net = loaded(builder, dtype)
     since = time.perf_counter_ns()
@@ -202,14 +210,15 @@ def test_walls_are_the_sums_of_their_spans(graph_form, engine):
         chip.sim(STEPS, heartbeat=0, chunk=CHUNK, **kwargs)
     named = by_name(tracing.spans(since))
     summary = chip.format_run_summary(port_chip.RunData())
-    for key, sources in WALLS.items():
+    for key, sources in (*WALLS.items(), *PART_WALLS.items()):
         total = 0.0
         for name in sources:
             for s in named.get(name, []):
                 total += (s.end_ns - s.start_ns) * 1e-9
         grown = getattr(chip, key) - before[key]
         assert grown == pytest.approx(total, rel=1e-12, abs=1e-15), key
-        assert f"{getattr(chip, key):f}" in summary
+        if key in WALLS:
+            assert f"{getattr(chip, key):f}" in summary
 
 
 def test_sweep_gives_one_span_tree(graph_form):
@@ -331,3 +340,49 @@ def test_span_readers_read_the_window(monkeypatch, name, want):
     assert read(RUN) is None
     synthetic(monkeypatch, [])
     assert read(RUN) is None
+
+
+def test_delivery_counters_and_their_readers(monkeypatch):
+    """A kernel-delivery program (the CPU runs the same sums) records its
+    set-up span ``sanafe.setup.delivery`` with no profiler, kept in
+    ``tracing.setups()`` (not in the store) with the counters
+    ``delivery.live_rows`` and ``delivery.stored_bytes`` of its block
+    delivery as fields; the span feeds the chip's ``delivery_build_wall``.
+    The benchmark's readers read the set-up's spans, those that ended
+    before the window's first call, and None where none did or the
+    program keeps none."""
+    monkeypatch.setattr(port_chip, "make_device_program", functools.partial(
+        port_step.make_device_program, use_kernel=True))
+    monkeypatch.setattr(tracing, "_setups", collections.deque(
+        maxlen=tracing.SETUP_CAPACITY))
+    chip, net = loaded(random_chip, torch.float32)
+    since = time.perf_counter_ns()
+    chip.load(net)
+    chip.sim(STEPS, timing_model="simple", heartbeat=0)
+    until = time.perf_counter()
+    (prog,) = chip._programs.values()
+    blk = prog.block
+    assert prog.kernel_delivery and chip.delivery_build_wall > 0.0
+    assert tracing.spans(since) == []
+    named = by_name(tracing.setups())
+    assert sorted(named) == ["sanafe.setup.delivery", "sanafe.setup.engine",
+                             "sanafe.setup.load"]
+    (built,) = named["sanafe.setup.delivery"]
+    assert built.fields == {"delivery.live_rows": blk.live_rows.count,
+                            "delivery.stored_bytes": blk.stored_bytes}
+    assert blk.live_rows.count > 0
+    assert blk.stored_bytes > blk.weights.numel() * 4
+    seconds = (built.end_ns - built.start_ns) * 1e-9
+    assert chip.delivery_build_wall == pytest.approx(seconds, rel=1e-12)
+    window = {"calls": [SimpleNamespace(begin=until, end=until + 1.0)]}
+    assert reader("delivery.stored_mib").read(window) == (
+        blk.stored_bytes / 2**20)
+    assert reader("setup.delivery_s").read(window) == pytest.approx(
+        seconds, rel=1e-12)
+    # a set-up after the window's first call is not the cell's
+    early = {"calls": [SimpleNamespace(begin=since * 1e-9, end=until)]}
+    assert reader("delivery.stored_mib").read(early) is None
+    assert reader("setup.delivery_s").read(early) is None
+    monkeypatch.delattr(tracing, "setups")
+    assert reader("delivery.stored_mib").read(window) is None
+    assert reader("setup.delivery_s").read(window) is None
