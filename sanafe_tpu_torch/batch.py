@@ -207,9 +207,10 @@ class ParameterSweep:
         # on the 4096-neuron HH chip, PERF.md).
         fuse = all(name in DYNAMICS_ONLY or name.startswith("plugin_")
                    for name in overrides)
+        # the batched kernel reads the live rows, never the cells
         self.prog = make_device_program(
             c, chip.device, chip.dtype if dtype is None else dtype,
-            fuse=fuse)
+            fuse=fuse, hold_rows=True)
         prog = self.prog
         if not overrides:
             raise ValueError("no overrides given; use SpikingChip.sim()")

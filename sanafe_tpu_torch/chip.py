@@ -83,7 +83,12 @@ from .ops.chunk import (
 from .ops.dag_chunk import DagGraphs, make_dag_body, plan_dag, run_dag
 from .ops.merge_sweep import default_merge_cap, make_merge_sweep
 from .ops.scan import ScanGraphs, run_scan
-from .ops.step import DeviceProgram, initial_state, make_device_program
+from .ops.step import (
+    DeviceProgram,
+    initial_state,
+    make_device_program,
+    settle_delivery,
+)
 from .parallel import state_neuron_dim
 from .ops.timing import (
     MessageRecord,
@@ -1060,6 +1065,11 @@ class SpikingChip:
         self.total_spikes += rd.spikes
         self.total_neurons_updated += rd.neurons_updated
         self.total_neurons_fired += rd.neurons_fired
+        if settle_delivery(engine.prog, timesteps, rd.neurons_fired):
+            # the program took the live rows: its engines are rebuilt, so
+            # no graph outlives the cells it read
+            self._engines = {key: e for key, e in self._engines.items()
+                             if e.prog is not engine.prog}
 
         result = rd.to_dict()
         result["device_engine"] = engine.name

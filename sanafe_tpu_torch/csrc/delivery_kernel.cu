@@ -75,7 +75,41 @@
 // for bit at one sample, and both equal the plain version delivery_plain
 // wherever the partial sums are exact (integer weights). Two launches on the
 // same inputs give the same bits.
+//
+// The cells (a second live_kernel, over the same sums). Where a live row
+// holds few edges the rows are mostly +0.0: TCAD'25's largest random network
+// (131,072 neurons, 16.8M edges) lists 4.15M live rows of 256 columns with
+// 4.04 edges each, 4.39 GB a step streamed for 134 MB of edges (8 B each).
+// There the program holds the edge cells alone, destination-major
+// (ops/delivery.py: DeliveryCells; a program holds them where the kernel's
+// measured cost, delivery_us, makes them faster than the rows at the share
+// of neurons that fire): each destination neuron's cells, a
+// source neuron (int32) and a weight (the value its row holds at that
+// column) each, in ascending source order, in slices of 32 destinations
+// padded to the slice's longest list, a destination's cells in groups of 4
+// side by side, so that lane j of a warp reads destination j's next 4 cells
+// (16 bytes of sources) beside its neighbours'. One launch a step:
+// - the fired plane as a bitmask in shared memory (a bit a neuron: 16 KB for
+//   131,072 neurons). A cluster of kCellCluster CTAs packs it, a quarter
+//   each from the plane (by ballot), and each CTA copies the others'
+//   quarters out of their shared memory (distributed shared memory), so the
+//   plane is read from L2 once a cluster, not once a CTA. A plane whose mask
+//   passes a CTA's shared memory (over 1.8M neurons) is read for each cell
+//   instead (the kMask = false kernel, no cluster);
+// - persistent CTAs, as many as the card holds at once, 1024 threads each;
+//   a warp takes a slice, a thread a destination: it loads 16 (float) or 8
+//   (double) cells, sources and weights, in 16-byte loads, then adds those
+//   whose source fired, in order, from +0.0, and ORs whether any did. The
+//   order is the rows' (blocks ascending, rows ascending within a block:
+//   source ascending), and the rows' other columns add +0.0 (no cell),
+//   which changes no bit of a sum from +0.0: the same bits as the row path
+//   for any weights.
+// It reads each cell once (8 B in float32, plus the slices' padding: 20.1M
+// slots for 16.8M cells on that network), the lengths and the plane;
+// bounded by those bytes (on an H100: 0.075 ms a step there, 1.47 ms over
+// the rows).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -85,6 +119,7 @@
 
 namespace {
 
+namespace cg = cooperative_groups;
 using sanafe::bulk_copy;
 using sanafe::cp_async;
 using sanafe::cp_async_arrive;
@@ -412,9 +447,10 @@ cudaError_t launch(const void* x, const void* w, const void* arrive,
                    cudaStream_t stream) {
   const Plan p = make_plan(n_tiles, tile, sizeof(T) == 8);
   if (p.smem < 0 || p.adders > kMaxAdders) return cudaErrorInvalidValue;
+  void (*const kernel)(const T*, const T*, const uint32_t*, const int2*,
+                       const int*, T*, uint8_t*, int, Plan) = live_kernel<T>;
   const cudaError_t err = sanafe::reserve_smem(
-      reinterpret_cast<const void*>(&live_kernel<T>),
-      static_cast<size_t>(p.smem));
+      reinterpret_cast<const void*>(kernel), static_cast<size_t>(p.smem));
   if (err != cudaSuccess) return err;
   const dim3 grid(n_tiles, p.slices);
   live_kernel<T><<<grid, (p.adders + kCopiers + kProducers) * kWarp, p.smem,
@@ -425,6 +461,236 @@ cudaError_t launch(const void* x, const void* w, const void* arrive,
       static_cast<uint8_t*>(out_arrived), tile, p);
   return cudaGetLastError();
 }
+
+// --- the cells ---
+
+constexpr int kCellThreads = 1024;
+constexpr int kCellWarps = kCellThreads / kWarp;
+constexpr int kCellBatch = 8;    // mask words a lane tests before its ballots
+constexpr int kCellCluster = 4;  // CTAs that pack the fired mask together
+constexpr int kSlice = 32;       // destinations a slice: a warp's lanes
+constexpr int kGroup = 4;        // a destination's cells that lie together
+
+// A group's 4 weights, in 16-byte loads.
+__device__ __forceinline__ void load_group(const float* p, float (&v)[kGroup]) {
+  const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+  v[0] = q.x;
+  v[1] = q.y;
+  v[2] = q.z;
+  v[3] = q.w;
+}
+
+__device__ __forceinline__ void load_group(const double* p,
+                                           double (&v)[kGroup]) {
+  const double2 a = __ldg(reinterpret_cast<const double2*>(p));
+  const double2 b = __ldg(reinterpret_cast<const double2*>(p) + 1);
+  v[0] = a.x;
+  v[1] = a.y;
+  v[2] = b.x;
+  v[3] = b.y;
+}
+
+__device__ __forceinline__ int group_at(const int4& g, int e) {
+  return e == 0 ? g.x : e == 1 ? g.y : e == 2 ? g.z : g.w;
+}
+
+// The fired mask's shared memory for n neurons (a bit each, 16-byte rounded).
+long long cell_smem(int n) {
+  return (4LL * ((n + 31) / 32) + 15) / 16 * 16;
+}
+
+// T: float or double; kMask: the fired plane packed into a bitmask in shared
+// memory by a cluster (else read for each cell). Slice s holds destinations
+// 32s .. 32s + 31; cell k of destination 32s + j is slot starts[s] +
+// 128 (k / 4) + 4j + k % 4 (ops/delivery.py: cell_slot), so lane j loads
+// its cells 4 at a time, 16 bytes of sources, beside its neighbours'.
+template <typename T, bool kMask>
+__global__ void __launch_bounds__(kCellThreads, 1)
+live_kernel(const T* __restrict__ x, const int* __restrict__ src,
+            const T* __restrict__ w, const int* __restrict__ lengths,
+            const long long* __restrict__ starts, T* __restrict__ out_cur,
+            uint8_t* __restrict__ out_arrived, int n, int n_slices) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint32_t* mask = reinterpret_cast<uint32_t*>(smem);  // bit i: i fired
+  const int tid = threadIdx.x;
+  const int lane = tid & (kWarp - 1);
+  const int warp = tid / kWarp;
+  if constexpr (kMask) {
+    // rank r packs words [r * per, (r + 1) * per): lane l tests neuron l of
+    // each of kCellBatch words, all loads in flight, then one ballot a word
+    cg::cluster_group cluster = cg::this_cluster();
+    const int rank = static_cast<int>(cluster.block_rank());
+    const int ranks = static_cast<int>(cluster.num_blocks());
+    const int words = (n + 31) / 32;
+    const int per = (words + ranks - 1) / ranks;
+    const int lo = rank * per;
+    const int hi = min(words, lo + per);
+    for (int w0 = lo + warp * kCellBatch; w0 < hi;
+         w0 += kCellWarps * kCellBatch) {
+      bool f[kCellBatch];
+#pragma unroll
+      for (int q = 0; q < kCellBatch; ++q) {
+        const int i = (w0 + q) * 32 + lane;
+        f[q] = w0 + q < hi && i < n && __ldg(x + i) != T(0);
+      }
+#pragma unroll
+      for (int q = 0; q < kCellBatch; ++q) {
+        const unsigned word = __ballot_sync(kFull, f[q]);
+        if (lane == 0 && w0 + q < hi) mask[w0 + q] = word;
+      }
+    }
+    cluster.sync();  // every rank's words written
+    for (int peer = 0; peer < ranks; ++peer) {
+      if (peer == rank) continue;
+      const uint32_t* theirs = cluster.map_shared_rank(mask, peer);
+      const int p_hi = min(words, (peer + 1) * per);
+      for (int i = peer * per + tid; i < p_hi; i += kCellThreads) {
+        mask[i] = theirs[i];
+      }
+    }
+    cluster.sync();  // no CTA leaves while a peer reads its words
+  }
+
+  // groups a lane loads before it adds them: 64 bytes of weights
+  constexpr int kInFlight = 16 / sizeof(T);
+  for (int s = blockIdx.x * kCellWarps + warp; s < n_slices;
+       s += gridDim.x * kCellWarps) {
+    const int d = s * kSlice + lane;
+    const int len = d < n ? __ldg(lengths + d) : 0;
+    const long long first = __ldg(starts + s);
+    // the slice's longest list, in whole groups
+    const int groups = static_cast<int>(
+        (__ldg(starts + s + 1) - first) / (kSlice * kGroup));
+    const int* s_src = src + first + lane * kGroup;
+    const T* s_w = w + first + lane * kGroup;
+    T acc = T(0);
+    bool seen = false;
+    for (int g0 = 0; g0 < groups; g0 += kInFlight) {
+      int4 sv[kInFlight];
+      T wv[kInFlight][kGroup];
+#pragma unroll
+      for (int q = 0; q < kInFlight; ++q) {
+        const int g = g0 + q;
+        const long long at = static_cast<long long>(g) * (kSlice * kGroup);
+        if (g * kGroup < len) {
+          sv[q] = __ldg(reinterpret_cast<const int4*>(s_src + at));
+          load_group(s_w + at, wv[q]);
+        } else {
+          sv[q] = make_int4(0, 0, 0, 0);
+#pragma unroll
+          for (int e = 0; e < kGroup; ++e) wv[q][e] = T(0);
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kInFlight; ++q) {
+#pragma unroll
+        for (int e = 0; e < kGroup; ++e) {
+          if ((g0 + q) * kGroup + e < len) {  // in order: the cells
+            const int source = group_at(sv[q], e);
+            bool fired;
+            if constexpr (kMask) {
+              fired = (mask[source >> 5] >> (source & 31)) & 1u;
+            } else {
+              fired = __ldg(x + source) != T(0);
+            }
+            if (fired) {
+              acc = acc + wv[q][e];
+              seen = true;
+            }
+          }
+        }
+      }
+    }
+    if (d < n) {
+      out_cur[d] = acc;
+      out_arrived[d] = static_cast<uint8_t>(seen);
+    }
+  }
+}
+
+template <typename T, bool kMask>
+using CellKernel = void (*)(const T*, const int*, const T*, const int*,
+                            const long long*, T*, uint8_t*, int, int);
+
+// The CTAs one launch of the cell kernel takes for n neurons: those its
+// slices need (a warp a slice), at most as many as the card holds at once,
+// a multiple of the cluster with the mask; a CUDA error as its negative.
+template <typename T, bool kMask>
+int cell_ctas(int n) {
+  const CellKernel<T, kMask> kernel = live_kernel<T, kMask>;
+  const size_t smem = kMask ? static_cast<size_t>(cell_smem(n)) : 0;
+  cudaError_t err =
+      sanafe::reserve_smem(reinterpret_cast<const void*>(kernel), smem);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  const int n_slices = (n + kSlice - 1) / kSlice;
+  int need = (n_slices + kCellWarps - 1) / kCellWarps;
+  int most = 0;
+  if (kMask) {
+    need = (need + kCellCluster - 1) / kCellCluster * kCellCluster;
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = kCellCluster;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cudaLaunchConfig_t config = {};
+    config.gridDim = dim3(kCellCluster);
+    config.blockDim = dim3(kCellThreads);
+    config.dynamicSmemBytes = smem;
+    config.attrs = &attr;
+    config.numAttrs = 1;
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(
+        &clusters, reinterpret_cast<const void*>(kernel), &config);
+    if (err != cudaSuccess) return -static_cast<int>(err);
+    most = clusters * kCellCluster;
+  } else {
+    int per_sm = 0, device = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, reinterpret_cast<const void*>(kernel), kCellThreads, smem);
+    if (err == cudaSuccess) err = cudaGetDevice(&device);
+    if (err == cudaSuccess) {
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                   device);
+    }
+    if (err != cudaSuccess) return -static_cast<int>(err);
+    most = per_sm * sms;
+  }
+  if (most <= 0) return -static_cast<int>(cudaErrorInvalidConfiguration);
+  return need < most ? need : most;
+}
+
+template <typename T, bool kMask>
+cudaError_t launch_cells(const void* x, const void* src, const void* w,
+                         const void* lengths, const void* starts,
+                         void* out_cur, void* out_arrived, int n,
+                         int n_slices, int ctas, cudaStream_t stream) {
+  const CellKernel<T, kMask> kernel = live_kernel<T, kMask>;
+  const size_t smem = kMask ? static_cast<size_t>(cell_smem(n)) : 0;
+  cudaError_t err =
+      sanafe::reserve_smem(reinterpret_cast<const void*>(kernel), smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = kCellCluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(ctas);
+  config.blockDim = dim3(kCellThreads);
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  config.attrs = kMask ? &attr : nullptr;
+  config.numAttrs = kMask ? 1 : 0;
+  err = cudaLaunchKernelEx(
+      &config, kernel, static_cast<const T*>(x), static_cast<const int*>(src),
+      static_cast<const T*>(w), static_cast<const int*>(lengths),
+      static_cast<const long long*>(starts), static_cast<T*>(out_cur),
+      static_cast<uint8_t*>(out_arrived), n, n_slices);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+bool mask_fits(int n) { return cell_smem(n) <= kMaxSmem; }
 
 }  // namespace
 
@@ -465,6 +731,57 @@ int sanafe_delivery_launch(const void* x, const void* weights,
   }
   return launch<float>(x, weights, arrive, entries, tile_entries, out_cur,
                        out_arrived, n_tiles, tile, s);
+}
+
+// The CTAs a launch of the cell kernel takes for planes of n neurons on
+// `device` (sanafe_delivery_cells_launch's `ctas`), or a CUDA error as its
+// negative: the wrapper asks once, when a program is built.
+int sanafe_delivery_cells_ctas(int n, int is_double, int device) {
+  if (n <= 0 || device < 0) return -static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  if (is_double) {
+    return mask_fits(n) ? cell_ctas<double, true>(n)
+                        : cell_ctas<double, false>(n);
+  }
+  return mask_fits(n) ? cell_ctas<float, true>(n) : cell_ctas<float, false>(n);
+}
+
+// One delivery over the cells on `stream`, float (is_double = 0) or double,
+// in one launch of `ctas` CTAs. x [n] is the fired plane; `src` (int32) and
+// `weights` [slots] the cells in slices of 32 destinations, `lengths`
+// (int32) [n] each destination's cells and `starts` (int64) [n_slices + 1]
+// each slice's first slot (ops/delivery.py: DeliveryCells); `out_cur` [n],
+// `out_arrived` [n] bytes. Returns the CUDA error (0 on success).
+int sanafe_delivery_cells_launch(const void* x, const void* src,
+                                 const void* weights, const void* lengths,
+                                 const void* starts, void* out_cur,
+                                 void* out_arrived, int n, int n_slices,
+                                 int ctas, int is_double, int device,
+                                 void* stream) {
+  if (n <= 0 || n_slices != (n + kSlice - 1) / kSlice || ctas <= 0 ||
+      device < 0 || (mask_fits(n) && ctas % kCellCluster)) {
+    return cudaErrorInvalidValue;
+  }
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_double) {
+    return mask_fits(n)
+               ? launch_cells<double, true>(x, src, weights, lengths, starts,
+                                            out_cur, out_arrived, n,
+                                            n_slices, ctas, s)
+               : launch_cells<double, false>(x, src, weights, lengths, starts,
+                                             out_cur, out_arrived, n,
+                                             n_slices, ctas, s);
+  }
+  return mask_fits(n)
+             ? launch_cells<float, true>(x, src, weights, lengths, starts,
+                                         out_cur, out_arrived, n, n_slices,
+                                         ctas, s)
+             : launch_cells<float, false>(x, src, weights, lengths, starts,
+                                          out_cur, out_arrived, n, n_slices,
+                                          ctas, s);
 }
 
 const char* sanafe_delivery_error_string(int err) {

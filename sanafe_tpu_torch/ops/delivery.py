@@ -30,6 +30,18 @@ for CPU tensors runs the same sum over the compact rows. A program checks
 the operands once (``plan_delivery``) and each step launches
 (``delivery_launch``).
 
+Where the live rows hold few edges each (TCAD'25's largest random network:
+4 edges in a row of 256 columns) the same kernel walks the cells instead
+(``DeliveryCells``: each destination neuron's edge cells in source order,
+a source neuron and a weight each, ``build_delivery_cells``), in the same
+order of adds, so bit for bit the same sums (``delivery_cells_plain``). The
+rows' kernel reads only the rows whose source fired, the cells' kernel
+every cell, each destination's as one chain of adds: a program holds
+whichever the kernel's measured cost (``delivery_us``) makes faster, first
+with every neuron firing (``cells_faster``), and once more at the share
+that fired in its first steps (``ops/step.py:settle_delivery``); it plans
+them once (``plan_delivery_cells``).
+
 ``delivery_batch_kernel`` (``csrc/delivery_batch_kernel.cu``) is the same
 delivery for B fired vectors at once, the sample axis of ``ParameterSweep``
 (sanafe_tpu's ``jax.vmap`` of the Pallas kernel): each live weight row
@@ -41,8 +53,9 @@ it, in the same order. Its plain version over the dense blocks is
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
+import numpy as np
 import torch
 
 from .cuda_build import DELIVERY, DELIVERY_BATCH, load
@@ -50,6 +63,28 @@ from .cuda_build import DELIVERY, DELIVERY_BATCH, load
 # a tile is at most this many neurons (the live-row lists hold row indices
 # as bytes), and a multiple of 4 (rows are read 16 bytes at a time)
 MAX_TILE = 256
+# destinations a slice of the cell layout (a warp's lanes, one each), and
+# the consecutive cells of a destination that lie together (a 16-byte load
+# of their sources)
+CELL_SLICE = 32
+CELL_GROUP = 4
+# The kernel's time a step on an H100 80GB HBM3 at 700 W, fitted to the
+# sweep of scripts/delivery_crossover.py (PERF.md §6: four chips at eight
+# fired shares; it picks the faster path at 30 of the 32, and the path it
+# picks at the other two takes at most 1.16x the other's). Over the
+# live rows: ROWS_US, ROW_ENTRY_NS a live row of a destination tile (each
+# tile's CTAs walk its list) and the fired rows' bytes at ROWS_GB_S, a
+# share of it where fewer than ROWS_TILES destination tiles leave SMs idle.
+# Over the cells: CELLS_US and the larger of the cells' bytes at CELLS_GB_S
+# and the longest destination's cells at CELL_CHAIN_NS a cell (a
+# destination's adds are one thread's chain).
+ROWS_US = 2.2
+ROW_ENTRY_NS = 4.7
+ROWS_GB_S = 2900.0
+ROWS_TILES = 132
+CELLS_US = 6.5
+CELLS_GB_S = 1850.0
+CELL_CHAIN_NS = 80.0
 
 
 def sorted_segment_sum(values: torch.Tensor, dest_offsets: torch.Tensor,
@@ -345,6 +380,10 @@ def _library():
     lib.sanafe_delivery_launch.argtypes = [vp] * 7 + [i32] * 4 + [vp]
     lib.sanafe_delivery_smem.restype = ctypes.c_longlong
     lib.sanafe_delivery_smem.argtypes = [i32] * 3
+    lib.sanafe_delivery_cells_launch.restype = i32
+    lib.sanafe_delivery_cells_launch.argtypes = [vp] * 7 + [i32] * 5 + [vp]
+    lib.sanafe_delivery_cells_ctas.restype = i32
+    lib.sanafe_delivery_cells_ctas.argtypes = [i32] * 3
     lib.sanafe_delivery_error_string.restype = ctypes.c_char_p
     lib.sanafe_delivery_error_string.argtypes = [i32]
     return lib
@@ -446,18 +485,210 @@ def plan_delivery(weights, arrivals, src_tiles, dest_offsets,
     return Delivery(**plan)
 
 
-def delivery_launch(fired_tiles, plan: Delivery):
-    """``delivery_kernel`` on ``plan``'s operands: the CUDA kernel for a
-    CUDA plane, ``delivery_live_plain`` for a CPU one. Checks only the
-    plane ``fired_tiles`` ([n_tiles, tile], the plan's shape, in the
-    weights' dtype), allocates the outputs and launches on the current
-    stream; counts on ``delivery_kernel.launches``."""
-    dev = fired_tiles.device
+class DeliveryCells(NamedTuple):
+    """The blocks' edge cells destination-major: destination neuron ``d``'s
+    cells (a (source, destination) pair that holds an edge; its weight the
+    edges' sum cast once to the program dtype) in ascending order of their
+    source neuron, which is the live rows' order of adds for column
+    ``d % tile`` (blocks ascending, rows ascending within a block). Sliced
+    by ``CELL_SLICE`` destinations, each slice padded to its longest list
+    rounded up to ``CELL_GROUP``: a destination's cells lie in groups of
+    ``CELL_GROUP``, and group ``g`` of the slice's destinations lie side by
+    side (``cell_slot``), so a warp's lanes, a destination each, read their
+    ``g``-th groups together, 16 bytes of sources a lane. ``src`` int32
+    and ``weights`` (the program dtype) ``[slots]``, zeros in the padding;
+    ``lengths`` int32 ``[n]``, each destination's cells; ``starts`` int64
+    ``[n_slices + 1]``, each slice's first slot; kept on the host, ``count``
+    the cells, ``longest`` the longest destination's and ``rows`` the live
+    rows the same cells fill (what the rows' path would hold)."""
+
+    src: torch.Tensor
+    weights: torch.Tensor
+    lengths: torch.Tensor
+    starts: torch.Tensor
+    count: int
+    longest: int
+    rows: int
+
+
+def cell_slot(starts, dest, k):
+    """The slot of cell ``k`` of destination ``dest`` (numpy or torch
+    integers) in cells whose slices start at ``starts``."""
+    return (starts[dest // CELL_SLICE]
+            + k // CELL_GROUP * (CELL_SLICE * CELL_GROUP)
+            + dest % CELL_SLICE * CELL_GROUP + k % CELL_GROUP)
+
+
+def listed_cells(cells: DeliveryCells) -> tuple:
+    """(destination, slot) of every cell ``cells`` holds, int64 tensors,
+    destination by destination, each's in source order."""
+    lengths = cells.lengths.long()
+    dest = torch.repeat_interleave(
+        torch.arange(lengths.numel(), device=lengths.device), lengths)
+    first = torch.cumsum(lengths, 0) - lengths
+    k = torch.arange(len(dest), device=lengths.device) - first[dest]
+    return dest, cell_slot(cells.starts, dest, k)
+
+
+def delivery_us(n_cells: int, longest: int, n_rows: int, n_tiles: int,
+                tile: int, dtype, fired: float = 1.0) -> tuple:
+    """The kernel's modelled time a step in microseconds, (over the live
+    rows, over the cells), for ``n_rows`` live rows of ``tile`` columns (a
+    weight a column and the arrival words) into ``n_tiles`` destination
+    tiles, a share ``fired`` of them fired, and ``n_cells`` cells (a source
+    index and a weight), the longest destination's ``longest``."""
+    size = torch.empty((), dtype=dtype).element_size()
+    row_bytes = tile * size + 4 * -(-tile // 32)
+    rows = (ROWS_US + ROW_ENTRY_NS * 1e-3 * n_rows / n_tiles
+            + fired * n_rows * row_bytes
+            / (ROWS_GB_S * 1e3 * min(1.0, n_tiles / ROWS_TILES)))
+    cells = CELLS_US + max(n_cells * (4 + size) / (CELLS_GB_S * 1e3),
+                           longest * CELL_CHAIN_NS * 1e-3)
+    return rows, cells
+
+
+def cells_faster(n_cells: int, longest: int, n_rows: int, n_tiles: int,
+                 tile: int, dtype, fired: float = 1.0) -> bool:
+    """Whether a kernel program holds the cells instead of the live rows:
+    where the kernel's modelled time over them (``delivery_us``) is below
+    its time over the rows, a share ``fired`` of them fired."""
+    rows, cells = delivery_us(n_cells, longest, n_rows, n_tiles, tile,
+                              dtype, fired)
+    return cells < rows
+
+
+def build_delivery_cells(dest: np.ndarray, src: np.ndarray,
+                         weights: torch.Tensor, n: int,
+                         rows: int) -> DeliveryCells:
+    """``DeliveryCells`` of the cells ``dest`` and ``src`` (int64,
+    destination and source neuron, sorted by destination then source, each
+    pair once) with ``weights`` (the program dtype, on the device the cells
+    are built on) into ``n`` destination neurons, which fill ``rows`` live
+    rows."""
+    device = weights.device
+    count = len(dest)
+    lengths = np.bincount(dest, minlength=n)
+    n_slices = -(-n // CELL_SLICE)
+    padded = np.zeros(n_slices * CELL_SLICE, dtype=np.int64)
+    padded[:n] = lengths
+    groups = -(-padded.reshape(n_slices, CELL_SLICE).max(axis=1)
+               // CELL_GROUP)
+    starts = np.zeros(n_slices + 1, dtype=np.int64)
+    starts[1:] = np.cumsum(groups * (CELL_SLICE * CELL_GROUP))
+    first = np.zeros(n + 1, dtype=np.int64)
+    first[1:] = np.cumsum(lengths)
+    slot = cell_slot(starts, dest, np.arange(count) - first[dest])
+    src_slots = np.zeros(int(starts[-1]), dtype=np.int32)
+    src_slots[slot] = src
+    w_slots = torch.zeros(int(starts[-1]), dtype=weights.dtype,
+                          device=device)
+    w_slots[torch.from_numpy(slot).to(device)] = weights
+    return DeliveryCells(
+        src=torch.from_numpy(src_slots).to(device), weights=w_slots,
+        lengths=torch.from_numpy(lengths.astype(np.int32)).to(device),
+        starts=torch.from_numpy(starts).to(device), count=count,
+        longest=int(lengths.max(initial=0)), rows=rows)
+
+
+def delivery_cells_plain(fired_tiles, cells: DeliveryCells):
+    """Plain version of ``delivery_kernel`` over the cells, in its order:
+    for each destination neuron, one accumulator from +0.0 adding its cells
+    whose source fired, in source order, and whether any did.
+    ``fired_tiles`` [n_tiles, tile] 0/1 in the program dtype; returns
+    (currents, arrived) as ``delivery_kernel``. It adds what
+    ``delivery_live_plain`` adds over the rows that hold the same cells, in
+    the same order, less the +0.0 of the columns without an edge, which
+    changes no bit of a sum from +0.0: the same bits for any weights."""
+    shape = fired_tiles.shape
+    fired = fired_tiles.reshape(-1) != 0
+    dest = torch.arange(fired.numel(), device=fired.device)
+    lengths = cells.lengths.long()
+    acc = torch.zeros(fired.numel(), dtype=fired_tiles.dtype,
+                      device=fired.device)
+    seen = torch.zeros(fired.numel(), dtype=torch.bool, device=fired.device)
+    for k in range(int(lengths.max())):
+        has = k < lengths
+        slot = torch.where(has, cell_slot(cells.starts, dest, k), 0)
+        take = has & fired[cells.src[slot].long()]
+        acc = torch.where(take, acc + cells.weights[slot], acc)
+        seen |= take
+    return acc.view(shape), seen.view(shape)
+
+
+class CellDelivery(NamedTuple):
+    """``delivery_kernel``'s operands on the cells, checked once
+    (``plan_delivery_cells``): the cells, the plane's ``shape`` and the
+    library's arguments after the plane's pointer (``launch``; None for
+    CPU tensors, which take the plain sum)."""
+
+    cells: DeliveryCells
+    shape: tuple  # the plane's (n_tiles, tile)
+    launch: Optional[tuple]
+
+
+def plan_delivery_cells(cells: DeliveryCells, shape: tuple) -> CellDelivery:
+    """Check the cells for planes of ``shape`` (n_tiles, tile) and ask the
+    library how many CTAs of the cell kernel the card holds at once, once:
+    a kernel program plans its cells with the program, as
+    ``plan_delivery`` its rows."""
+    n_tiles, tile = shape
+    n = n_tiles * tile
+    dev = cells.weights.device
     if dev.type == "cpu":
+        return CellDelivery(cells, tuple(shape), None)
+    if dev.type != "cuda":
+        raise ValueError(f"delivery_kernel: unsupported device {dev}")
+    dtype = cells.weights.dtype
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"delivery_kernel: unsupported dtype {dtype}")
+    slots = cells.src.numel()
+    n_slices = -(-n // CELL_SLICE)
+    expect = (
+        ("cells.src", cells.src, (slots,), torch.int32),
+        ("cells.weights", cells.weights, (slots,), dtype),
+        ("cells.lengths", cells.lengths, (n,), torch.int32),
+        ("cells.starts", cells.starts, (n_slices + 1,), torch.int64),
+    )
+    for name, x, want, dt in expect:
+        if (x.device != dev or x.shape != want or x.dtype != dt
+                or not x.is_contiguous() or x.data_ptr() % 16):
+            raise ValueError(
+                f"delivery_kernel: {name} must be a contiguous, 16-byte "
+                f"aligned {dt} tensor of shape {want} on {dev}; got "
+                f"{x.dtype} {tuple(x.shape)} on {x.device}")
+    if int(cells.starts[-1]) != slots:
+        raise ValueError(f"delivery_kernel: the cells' slices end at "
+                         f"{int(cells.starts[-1])}, not at {slots} slots")
+    is_double = int(dtype == torch.float64)
+    index = dev.index or 0
+    ctas = _library().sanafe_delivery_cells_ctas(n, is_double, index)
+    if ctas <= 0:
+        raise ValueError(f"delivery_kernel: the cell kernel for {n} neurons "
+                         f"cannot be placed on {dev} (CUDA error {-ctas})")
+    return CellDelivery(cells, tuple(shape), (
+        cells.src.data_ptr(), cells.weights.data_ptr(),
+        cells.lengths.data_ptr(), cells.starts.data_ptr(), n, n_slices, ctas,
+        is_double, index))
+
+
+def delivery_launch(fired_tiles, plan: Union[Delivery, CellDelivery]):
+    """``delivery_kernel`` on ``plan``'s operands, the live rows
+    (``plan_delivery``) or the cells (``plan_delivery_cells``): the CUDA
+    kernel for a CUDA plane, ``delivery_live_plain`` or
+    ``delivery_cells_plain`` for a CPU one. Checks only the plane
+    ``fired_tiles`` ([n_tiles, tile], the plan's shape, in the weights'
+    dtype), allocates the outputs and launches on the current stream;
+    counts on ``delivery_kernel.launches``."""
+    dev = fired_tiles.device
+    on_cells = isinstance(plan, CellDelivery)
+    if dev.type == "cpu":
+        if on_cells:
+            return delivery_cells_plain(fired_tiles, plan.cells)
         return _live_sum(fired_tiles, plan.weights, plan.arrivals,
                          plan.entries, plan.tile_entries)
-    dtype = plan.weights.dtype
-    if (plan.launch is None or dev != plan.weights.device
+    weights = plan.cells.weights if on_cells else plan.weights
+    dtype = weights.dtype
+    if (plan.launch is None or dev != weights.device
             or fired_tiles.dtype != dtype
             or tuple(fired_tiles.shape) != plan.shape
             or not fired_tiles.is_contiguous()
@@ -465,17 +696,26 @@ def delivery_launch(fired_tiles, plan: Delivery):
         raise ValueError(
             f"delivery_kernel: fired_tiles must be a contiguous, 16-byte "
             f"aligned {dtype} tensor of shape {plan.shape} on "
-            f"{plan.weights.device}; got {fired_tiles.dtype} "
+            f"{weights.device}; got {fired_tiles.dtype} "
             f"{tuple(fired_tiles.shape)} on {dev}")
     out_cur = torch.empty(plan.shape, dtype=dtype, device=dev)
     arrived = torch.empty(plan.shape, dtype=torch.bool, device=dev)
     lib = _library()
-    w, a, entries, tile_entries, n_tiles, tile, is_double, index = \
-        plan.launch
-    err = lib.sanafe_delivery_launch(
-        fired_tiles.data_ptr(), w, a, entries, tile_entries,
-        out_cur.data_ptr(), arrived.data_ptr(), n_tiles, tile, is_double,
-        index, torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if on_cells:
+        src, w, lengths, starts, n, n_slices, ctas, is_double, index = \
+            plan.launch
+        err = lib.sanafe_delivery_cells_launch(
+            fired_tiles.data_ptr(), src, w, lengths, starts,
+            out_cur.data_ptr(), arrived.data_ptr(), n, n_slices, ctas,
+            is_double, index, stream)
+    else:
+        w, a, entries, tile_entries, n_tiles, tile, is_double, index = \
+            plan.launch
+        err = lib.sanafe_delivery_launch(
+            fired_tiles.data_ptr(), w, a, entries, tile_entries,
+            out_cur.data_ptr(), arrived.data_ptr(), n_tiles, tile,
+            is_double, index, stream)
     if err:
         raise RuntimeError("delivery kernel launch failed: "
                            + lib.sanafe_delivery_error_string(err).decode())

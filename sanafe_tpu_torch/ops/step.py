@@ -56,13 +56,18 @@ from ..models import (
 )
 from .conv import ConvDelivery, build_conv_delivery, conv_arrays, conv_deliver
 from .delivery import (
+    CellDelivery,
     Delivery,
+    DeliveryCells,
     LiveRows,
     block_rows_sum,
+    build_delivery_cells,
+    cells_faster,
     delivery_batch_launch,
     delivery_launch,
     delivery_plain,
     plan_delivery,
+    plan_delivery_cells,
     sorted_segment_sum,
 )
 
@@ -70,6 +75,10 @@ from .delivery import (
 # DELIVERY_TILE): delivery runs over the (src-tile, dest-tile) blocks that
 # hold edges.
 DELIVERY_TILE = 256
+# the steps a kernel program that holds the edge cells runs before it
+# settles its delivery at the share of neurons that fired in them
+# (settle_delivery)
+SETTLE_STEPS = 64
 
 # Budgets sanafe_tpu/ops/step.py:make_device_program applies before it folds
 # the per-neuron roll-up and the dense delivery columns into one matrix, and
@@ -96,7 +105,9 @@ class BlockDelivery:
     ``dest_offsets[d]:dest_offsets[d + 1]``. A program that delivers
     through the kernel holds only the blocks' live rows (``live_rows``):
     ``weights`` and ``arrivals`` are then ``[count, tile]`` and ``[count,
-    words]``, row ``r`` being the ``r``-th row the list holds."""
+    words]``, row ``r`` being the ``r``-th row the list holds; or, where
+    the rows are sparse, their edge cells alone (``cells``), and then no
+    rows: ``weights`` is None."""
 
     tile: int
     n_tiles: int
@@ -104,8 +115,8 @@ class BlockDelivery:
     src_tiles: torch.Tensor  # [B] int32, block source tile ids
     dest_tiles: torch.Tensor  # [B] int32, sorted ascending
     # [B, tile, tile] program dtype, summed edges; [count, tile] where the
-    # live rows alone are held
-    weights: torch.Tensor
+    # live rows alone are held; None where the cells are
+    weights: Optional[torch.Tensor]
     # [B, tile, tile] int8, edge counts (saturated); None in a program that
     # delivers through the kernel, which reads `arrivals` instead
     counts: Optional[torch.Tensor]
@@ -118,9 +129,17 @@ class BlockDelivery:
     # the blocks' live rows, the rows `weights` and `arrivals` hold
     # (build_block_delivery's live_only); None where every row is held
     live_rows: Optional[LiveRows] = None
-    # the kernel's operands, checked once (plan_delivery); only in a
-    # program that delivers through the kernel
-    plan: Optional[Delivery] = None
+    # the kernel's operands, checked once (plan_delivery or
+    # plan_delivery_cells); only in a program that delivers through the
+    # kernel
+    plan: Optional[Delivery | CellDelivery] = None
+    # the blocks' edge cells destination-major (build_block_cells), in
+    # place of the live rows
+    cells: Optional[DeliveryCells] = None
+    # the edges delivered (build_block_delivery's edge_subset; None: every
+    # edge), kept on the host for a program that takes the rows later
+    # (settle_delivery)
+    edges: Optional[np.ndarray] = None
 
     @property
     def n_blocks(self) -> int:
@@ -129,12 +148,16 @@ class BlockDelivery:
     @property
     def stored_bytes(self) -> int:
         """The bytes of the delivery's device arrays: the weights, counts
-        or arrival words, the block tables and, with a plan, its list."""
+        or arrival words, the block tables, the cells and, with a plan of
+        the rows, its list."""
         parts = [self.src_tiles, self.dest_tiles, self.weights,
                  self.dest_offsets, self.counts, self.arrivals]
         if self.live_rows is not None:
             parts += [self.live_rows.rows, self.live_rows.offsets]
-        if self.plan is not None:
+        if self.cells is not None:
+            parts += [self.cells.src, self.cells.weights, self.cells.lengths,
+                      self.cells.starts]
+        if isinstance(self.plan, Delivery):
             parts += [self.plan.entries, self.plan.tile_entries]
         return sum(x.numel() * x.element_size() for x in parts
                    if x is not None)
@@ -149,6 +172,7 @@ def block_tiling(n: int) -> tuple:
 def build_block_delivery(
     c: CompiledChip, dtype: torch.dtype, device,
     edge_subset: Optional[np.ndarray] = None, live_only: bool = False,
+    hold_rows: bool = False,
 ) -> Optional[BlockDelivery]:
     """Lower the edge CSR into dense (src-tile, dest-tile) weight blocks.
 
@@ -167,7 +191,34 @@ def build_block_delivery(
     holds an edge), in list order (blocks ascending, rows ascending), with
     the list (``LiveRows``) that ``build_live_rows`` gives of the dense
     blocks: a cell holds an edge, so its row has an arrival bit, and a row
-    with none holds only +0.0. The sums and cells are the dense path's."""
+    with none holds only +0.0. The sums and cells are the dense path's.
+
+    Where the kernel walks the edge cells faster than the live rows with
+    every neuron firing (``cells_faster``), ``live_only`` builds the cells
+    alone instead (``build_block_cells``), with no rows and no list;
+    ``hold_rows`` keeps the rows whatever they hold."""
+    return _build_blocks(c, dtype, device, edge_subset,
+                         "dense" if not live_only
+                         else "rows" if hold_rows else "fastest")
+
+
+def build_block_cells(
+    c: CompiledChip, dtype: torch.dtype, device,
+    edge_subset: Optional[np.ndarray] = None,
+) -> Optional[BlockDelivery]:
+    """``build_block_delivery``'s delivery over the edge cells alone,
+    whatever the kernel would walk faster: each destination neuron's cells
+    in source order (``cells``, ``build_delivery_cells``: each cell's
+    weight the value its live row holds at that column), with no rows and
+    no list."""
+    return _build_blocks(c, dtype, device, edge_subset, "cells")
+
+
+def _build_blocks(c: CompiledChip, dtype: torch.dtype, device,
+                  edge_subset: Optional[np.ndarray],
+                  layout: str) -> Optional[BlockDelivery]:
+    """``build_block_delivery`` in ``layout``: "dense" blocks, the live
+    "rows", the "cells", or the "fastest" of rows and cells."""
     if c.has_delay_dendrite or c.has_multitap or c.has_plugin_comp:
         return None
     device = torch.device(device)
@@ -208,8 +259,25 @@ def build_block_delivery(
     )
     values = torch.from_numpy(weight_sum).to(dtype)
     col = cells % tile
-    if live_only:
+    if layout != "dense":
         row_first = _firsts(cells // tile)
+        # destination neuron, then source neuron: a destination's cells
+        # are in ascending (source tile, row) order already, so a stable
+        # sort by destination keeps them in source order
+        dest = cells // (n_tiles * tile * tile) * tile + col
+        if layout == "cells" or layout == "fastest" and cells_faster(
+                len(cells), int(np.bincount(dest).max(initial=0)),
+                len(row_first), n_tiles, tile, dtype):
+            order = np.argsort(dest, kind="stable")
+            src_neuron = ((cells // (tile * tile)) % n_tiles * tile
+                          + (cells // tile) % tile)
+            return BlockDelivery(
+                **common, weights=None, counts=None,
+                cells=build_delivery_cells(
+                    dest[order], src_neuron[order],
+                    values[torch.from_numpy(order)].to(device), n_pad,
+                    len(row_first)))
+        del dest
         row_of_cell = _ranks(row_first, len(cells))
         n_live = len(row_first)
         words = -(-tile // 32)
@@ -470,6 +538,11 @@ class DeviceProgram:
     # the step scan replays its chunks as CUDA graphs (ops/scan.py:
     # ScanGraphs); on the CPU the same blocks run eagerly in graph form
     graph: bool = False
+    # the steps run and neurons fired so far, until the kernel's delivery
+    # is settled (settle_delivery)
+    steps_seen: int = 0
+    fired_seen: int = 0
+    delivery_settled: bool = False
 
     def init_state(self) -> dict[str, torch.Tensor]:
         """The state before the first step; a sharded program's holds its
@@ -488,6 +561,85 @@ class DeviceProgram:
         return self.arrays["sync_delay"]
 
 
+def _program_delivery(c: CompiledChip, dtype: torch.dtype, device,
+                      edges: Optional[np.ndarray], live_only: bool,
+                      hold_rows: bool) -> Optional[BlockDelivery]:
+    """A program's block delivery over ``edges`` (None: every edge), built
+    (``build_block_delivery``) and, on the kernel's path, planned once, in
+    a ``sanafe.setup.delivery`` span that carries its counters."""
+    with tracing.span("sanafe.setup.delivery",
+                      wall="delivery_build_wall") as built:
+        block = build_block_delivery(c, dtype, device, edge_subset=edges,
+                                     live_only=live_only,
+                                     hold_rows=hold_rows)
+        on_cells = block is not None and block.cells is not None
+        if on_cells:
+            block.plan = plan_delivery_cells(block.cells,
+                                             (block.n_tiles, block.tile))
+        elif block is not None and live_only:
+            block.plan = plan_delivery(
+                block.weights, block.arrivals, block.src_tiles,
+                block.dest_offsets, block.max_blocks_per_dest,
+                block.live_rows)
+        if block is not None:
+            block.edges = edges
+        # the delivery's counters, for the benchmark (tracing.setups)
+        built.fields["delivery.path"] = "cells" if on_cells else "rows"
+        built.fields["delivery.cells"] = (block.cells.count if on_cells
+                                          else 0)
+        built.fields["delivery.live_rows"] = (
+            block.live_rows.count if block is not None
+            and block.live_rows is not None else 0)
+        built.fields["delivery.stored_bytes"] = (
+            block.stored_bytes if block is not None else 0)
+    return block
+
+
+def _delivery_arrays(arrays: dict, block: BlockDelivery,
+                     kernel_delivery: bool) -> None:
+    """Put ``block``'s device arrays into a program's ``arrays`` (and take
+    out a former delivery's weights)."""
+    for key in ("block_weights", "block_arrivals", "block_counts"):
+        arrays.pop(key, None)
+    arrays["block_src_tiles"] = block.src_tiles
+    arrays["block_dest_tiles"] = block.dest_tiles
+    if block.cells is None:  # a program of cells holds no rows
+        arrays["block_weights"] = block.weights
+        if kernel_delivery:
+            arrays["block_arrivals"] = block.arrivals
+        else:
+            arrays["block_counts"] = block.counts
+
+
+def settle_delivery(prog: "DeviceProgram", steps: int, fired: int) -> bool:
+    """After ``steps`` more steps of ``prog`` in which ``fired`` neurons
+    fired: once a kernel program that holds the cells has run
+    ``SETTLE_STEPS`` steps, it holds the live rows instead where the
+    kernel's modelled time over them (``delivery_us``) is below its time
+    over the cells at the share of neurons that fired in those steps (the
+    rows' kernel reads only the rows whose source fired); it decides once.
+    Returns whether it took the rows: graphs captured over the cells must
+    then be dropped (``chip.py``)."""
+    blk = prog.block
+    if (not prog.kernel_delivery or blk is None or blk.cells is None
+            or prog.delivery_settled):
+        return False
+    prog.steps_seen += steps
+    prog.fired_seen += fired
+    if prog.steps_seen < SETTLE_STEPS:
+        return False
+    prog.delivery_settled = True
+    cells = blk.cells
+    share = prog.fired_seen / (prog.steps_seen * prog.compiled.n_neurons)
+    if cells_faster(cells.count, cells.longest, cells.rows, blk.n_tiles,
+                    blk.tile, prog.dtype, share):
+        return False
+    prog.block = _program_delivery(prog.compiled, prog.dtype, prog.device,
+                                   blk.edges, True, True)
+    _delivery_arrays(prog.arrays, prog.block, True)
+    return True
+
+
 def make_device_program(
     compiled: CompiledChip,
     device,
@@ -500,6 +652,7 @@ def make_device_program(
     fuse: bool = True,
     mesh=None,
     graph: Optional[bool] = None,
+    hold_rows: bool = False,
 ) -> DeviceProgram:
     """sanafe_tpu's ``make_device_program`` on ``device``.
 
@@ -529,9 +682,17 @@ def make_device_program(
     (``block.live_rows``), their weights and packed arrival words
     (``block.weights``, ``block.arrivals``), built straight from the edges,
     beside the kernel's checked operands (``block.plan``): never the dense
-    blocks or their int8 counts. The TPU kernel's ``tile >= 128`` condition
-    is its (8, 128) layout's; the CUDA kernel takes every tile size. On the
-    CPU the default program is sanafe_tpu's default one."""
+    blocks or their int8 counts. Where the kernel walks the edge cells
+    faster than the rows with every neuron firing (``cells_faster``: sparse
+    rows, short lists), it holds the cells alone instead (``block.cells``,
+    planned as ``block.plan``), in the same order of adds, and once it has
+    run ``SETTLE_STEPS`` steps takes the rows after all where those are
+    faster at the share that fired (``settle_delivery``, which the chip
+    calls). ``hold_rows`` keeps the rows whatever they hold, for a caller
+    that reads them itself (``ParameterSweep``'s batched kernel). The TPU
+    kernel's ``tile >= 128`` condition is its (8, 128) layout's; the CUDA
+    kernel takes every tile size. On the CPU the default program is
+    sanafe_tpu's default one."""
     c = compiled
     device = torch.device(device)
     if use_kernel is None:
@@ -696,34 +857,14 @@ def make_device_program(
     # blocks never change: set_attributes and load rebuild the program)
     live_only = bool(use_kernel and conv_delivery is None and (
         blocks_total > 0 if blocks_total is not None else c.n_edges > 0))
-    with tracing.span("sanafe.setup.delivery",
-                      wall="delivery_build_wall") as built:
-        block = build_block_delivery(c, dtype, device,
-                                     edge_subset=block_edges,
-                                     live_only=live_only)
-        if block is not None and live_only:
-            block.plan = plan_delivery(
-                block.weights, block.arrivals, block.src_tiles,
-                block.dest_offsets, block.max_blocks_per_dest,
-                block.live_rows)
-        # the delivery's counters, for the benchmark (tracing.setups)
-        built.fields["delivery.live_rows"] = (
-            block.live_rows.count if block is not None
-            and block.live_rows is not None else 0)
-        built.fields["delivery.stored_bytes"] = (
-            block.stored_bytes if block is not None else 0)
+    block = _program_delivery(c, dtype, device, block_edges, live_only,
+                              hold_rows)
     kernel_delivery = False
     if block is not None:
         if blocks_total is None:
             blocks_total = block.n_blocks
-        arrays["block_src_tiles"] = block.src_tiles
-        arrays["block_dest_tiles"] = block.dest_tiles
-        arrays["block_weights"] = block.weights
         kernel_delivery = live_only
-        if kernel_delivery:
-            arrays["block_arrivals"] = block.arrivals
-        else:
-            arrays["block_counts"] = block.counts
+        _delivery_arrays(arrays, block, kernel_delivery)
     sync_delay = c.arch.ts_sync_delay_table.get(c.mapped_tiles)
     models_present = frozenset(int(m) for m in np.unique(c.soma_model))
     n_rollup_cols = 9 + 2 * c.n_cores + len(c.perf_col_names)

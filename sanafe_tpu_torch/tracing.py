@@ -38,9 +38,14 @@ work (``steps``, ``spikes``), as its fields. The names::
     sanafe.setup.load               SpikingChip.load (setup_wall)
     sanafe.setup.sweep              ParameterSweep's build
     sanafe.setup.delivery           a program's block delivery built: the
-                                    live rows on the kernel's path
-                                    (delivery_build_wall), within
-                                    sanafe.setup.engine or .setup.sweep
+                                    live rows, or the edge cells where the
+                                    kernel walks them faster, on the
+                                    kernel's path (delivery_build_wall),
+                                    within sanafe.setup.engine or
+                                    .setup.sweep, or at a sim call's end
+                                    where a program on the cells settles
+                                    on the rows (ops/step.py:
+                                    settle_delivery)
 
 On the CPU a program built with ``graph`` set runs each block eagerly, in
 a ``sanafe.replay`` span all the same. Spans go per call, chunk and replay,
@@ -64,8 +69,10 @@ the file that ``prof.export_chrome_trace(path)`` writes (in Perfetto or
 In both modes the process also keeps every finished set-up span
 (``sanafe.setup.*``, one a load or a build) for a reader in the same
 process (the benchmark): ``setups()``. A ``sanafe.setup.delivery`` span
-carries its program's delivery counters as fields: ``delivery.live_rows``
-(the live rows it holds; 0 where it holds the dense blocks) and
+carries its program's delivery counters as fields: ``delivery.path``
+(``cells`` where it holds the edge cells, else ``rows``),
+``delivery.cells`` (the cells it holds), ``delivery.live_rows`` (the live
+rows it holds; 0 where it holds the dense blocks or the cells) and
 ``delivery.stored_bytes`` (the bytes of its device arrays).
 """
 

@@ -118,7 +118,9 @@ def main() -> int:
     card = chip_smoke.card_line()
     libs = build()
     compiled = compile_chip(*chip_smoke.random_chip(st, **chip_smoke.FULL))
-    blk = make_device_program(compiled, "cuda", torch.float32).block
+    # the live rows, which the batched kernel reads (a sweep's program)
+    blk = make_device_program(compiled, "cuda", torch.float32,
+                              hold_rows=True).block
     dblk = chip_smoke.dense_of(blk)  # the program holds the live rows alone
     lists = {"live": blk.live_rows,
              "every": delivery.every_row_live(blk.n_blocks, blk.tile,

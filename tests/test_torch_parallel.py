@@ -179,17 +179,19 @@ def _rank_main(rank: int, world: int, store: str, out: str, jax_npz: str):
         res["active_sticky"] = chip._mesh is mesh
 
         # a kernel-delivery program on each rank (the CPU runs the kernel's
-        # sums), built from the rank's own edges: their blocks' live rows
+        # sums), built from the rank's own edges: their blocks' cells, the
+        # random chip's live rows being sparse
         import functools
 
         import sanafe_tpu_torch.chip as port_chip
         from sanafe_tpu_torch.ops.delivery import (
             build_live_rows,
-            compact_blocks,
+            cells_faster,
             pack_arrival_plane,
         )
         from sanafe_tpu_torch.ops.step import (
             block_tiling,
+            build_block_cells,
             build_block_delivery,
         )
         from sanafe_tpu_torch.parallel import block_edges, neuron_range
@@ -212,19 +214,24 @@ def _rank_main(rank: int, world: int, store: str, out: str, jax_npz: str):
         dense = build_block_delivery(c, prog.dtype, "cpu",
                                      edge_subset=owned)
         plane = pack_arrival_plane(dense.counts)
-        want = build_live_rows(dense.weights, plane)
-        _, rows, words = compact_blocks(dense.weights, plane, want)
+        rows = build_live_rows(dense.weights, plane)
+        want = build_block_cells(c, prog.dtype, "cpu",
+                                 edge_subset=owned).cells
+        held = blk.cells
         (out / f"kernel_mesh_r{rank}.pkl").write_bytes(pickle.dumps({
             "kernel": prog.kernel_delivery and prog.shard is not None,
-            "count": blk.plan.live_rows.count,
-            "equal": (blk.plan.live_rows.count == want.count
-                      and torch.equal(blk.plan.live_rows.rows, want.rows)
-                      and torch.equal(blk.plan.live_rows.offsets,
-                                      want.offsets)
-                      and torch.equal(blk.weights.view(torch.int64),
-                                      rows.view(torch.int64))
-                      and torch.equal(blk.arrivals, words)),
-            "planned": blk.plan.weights is blk.weights,
+            "cells": (held is not None and blk.live_rows is None
+                      and cells_faster(want.count, want.longest, rows.count,
+                                       blk.n_tiles, blk.tile, prog.dtype)),
+            "count": held.count,
+            "equal": (held.count == want.count == int(
+                          (dense.counts > 0).sum())
+                      and torch.equal(held.src, want.src)
+                      and torch.equal(held.lengths, want.lengths)
+                      and torch.equal(held.starts, want.starts)
+                      and torch.equal(held.weights.view(torch.int64),
+                                      want.weights.view(torch.int64))),
+            "planned": blk.plan.cells is held,
             "tiles": sorted(set(blk.dest_tiles.tolist())),
         }))
 
@@ -478,16 +485,18 @@ def test_block_edges_deliver_each_rank_whole(world):
 
 
 def test_kernel_program_on_the_mesh(ranks, tmp_path):
-    """Each rank's kernel-delivery program holds the live rows of its own
-    blocks alone (``build_live_rows`` and ``compact_blocks`` of the dense
-    blocks of the rank's edges), the ranks' destination tiles
-    cover the chip, and the sharded run through the lists gives one
+    """Each rank's kernel-delivery program holds the cells of its own
+    blocks alone, the byte rule's choice for the random chip's sparse live
+    rows (``build_live_rows`` of the dense blocks of the rank's edges): the
+    cells its edges give, one a cell of those blocks; the ranks' destination
+    tiles cover the chip, and the sharded run through the lists gives one
     process's spike raster and counters."""
     world, out, res = ranks
     ranks_seen = [pickle.loads((out / f"kernel_mesh_r{r}.pkl").read_bytes())
                   for r in range(world)]
     for info in ranks_seen:
         assert info["kernel"] and info["equal"] and info["planned"]
+        assert info["cells"]
         assert info["count"] > 0
     assert ranks_seen[0]["tiles"] == [0]
     assert set().union(*(set(i["tiles"]) for i in ranks_seen)) == {0, 1}

@@ -22,8 +22,9 @@
 
 The port runs on the CPU, where the delivery kernel's wrapper takes its
 plain version; ``use_kernel=True`` builds the kernel-shaped program, whose
-every step delivers through the live-row list (``delivery_launch`` on the
-program's plan: ``delivery_live_plain``'s order).
+every step delivers through the live-row list, or the cell list where the
+rows are sparse (``delivery_launch`` on the program's plan:
+``delivery_live_plain``'s order, ``delivery_cells_plain``'s the same).
 """
 
 import jax
@@ -33,6 +34,7 @@ import torch
 
 import sanafe_tpu as sf
 import sanafe_tpu_torch as st
+from sanafe_tpu_torch.ops.delivery import CellDelivery
 from sanafe_tpu_torch.ops.scan import rollup_stats, run_scan
 from sanafe_tpu_torch.ops.step import _timestep
 from sanafe_tpu_torch.ops.step import make_device_program as port_program
@@ -93,12 +95,15 @@ def through_the_list(monkeypatch):
 
 
 def assert_through_the_list(pprog, plans, steps=STEPS):
-    """A kernel-delivery program delivered every step through its list."""
+    """A kernel-delivery program delivered every step through its list (of
+    live rows, or of cells where its rows are sparse)."""
     if not pprog.kernel_delivery:
         assert not plans
         return
     blk = pprog.block
-    assert blk.plan is not None and blk.plan.live_rows.count > 0
+    held = (blk.plan.cells if isinstance(blk.plan, CellDelivery)
+            else blk.plan.live_rows)
+    assert held.count > 0
     assert len(plans) == steps and all(p is blk.plan for p in plans)
 
 
@@ -192,7 +197,7 @@ def test_scan_matches_jax_float64(f64, monkeypatch, name, use_kernel):
         name, torch.float64, use_kernel
     )
     assert pprog.kernel_delivery == bool(use_kernel and pprog.block is not None
-                                         and pprog.block.weights.shape[0])
+                                         and pprog.block.n_blocks)
     assert_through_the_list(pprog, plans)
     assert int(np.round(jout["stats"][:, 4]).sum()) > 0  # the chip fires
     assert_scan_match(jstate, jout, pstate, pout, f64_lane=True,

@@ -345,9 +345,11 @@ def test_span_readers_read_the_window(monkeypatch, name, want):
 def test_delivery_counters_and_their_readers(monkeypatch):
     """A kernel-delivery program (the CPU runs the same sums) records its
     set-up span ``sanafe.setup.delivery`` with no profiler, kept in
-    ``tracing.setups()`` (not in the store) with the counters
-    ``delivery.live_rows`` and ``delivery.stored_bytes`` of its block
-    delivery as fields; the span feeds the chip's ``delivery_build_wall``.
+    ``tracing.setups()`` (not in the store) with the counters of its block
+    delivery as fields: ``delivery.path`` (the random chip's rows are
+    sparse: ``cells``), ``delivery.cells``, ``delivery.live_rows`` (none
+    held on that path) and ``delivery.stored_bytes``; the span feeds the
+    chip's ``delivery_build_wall``.
     The benchmark's readers read the set-up's spans, those that ended
     before the window's first call, and None where none did or the
     program keeps none."""
@@ -368,10 +370,12 @@ def test_delivery_counters_and_their_readers(monkeypatch):
     assert sorted(named) == ["sanafe.setup.delivery", "sanafe.setup.engine",
                              "sanafe.setup.load"]
     (built,) = named["sanafe.setup.delivery"]
-    assert built.fields == {"delivery.live_rows": blk.live_rows.count,
+    assert built.fields == {"delivery.path": "cells",
+                            "delivery.cells": blk.cells.count,
+                            "delivery.live_rows": 0,
                             "delivery.stored_bytes": blk.stored_bytes}
-    assert blk.live_rows.count > 0
-    assert blk.stored_bytes > blk.weights.numel() * 4
+    assert blk.cells.count > 0 and blk.live_rows is None
+    assert blk.stored_bytes > blk.cells.weights.numel() * 4
     seconds = (built.end_ns - built.start_ns) * 1e-9
     assert chip.delivery_build_wall == pytest.approx(seconds, rel=1e-12)
     window = {"calls": [SimpleNamespace(begin=until, end=until + 1.0)]}
