@@ -43,7 +43,8 @@ with the all-ones count channel last, permuted to the port's OIHW here
 (``ops/conv.py:hwio_to_oihw``). Where the program delivers through the
 kernel, which holds the blocks' live rows alone, ``block_weights`` and
 ``block_counts`` overrides (the dense blocks) are compacted to the rows live
-in any sample, the counts packed into arrival words (``swept_rows``).
+in any sample, the counts packed into arrival words
+(``ops/delivery.py:LiveRowBlocks.batch_plan``).
 
 Example::
 
@@ -65,13 +66,6 @@ import torch
 
 from . import tracing
 from .ops.conv import hwio_to_oihw
-from .ops.delivery import (
-    LiveRows,
-    compact_blocks,
-    dense_blocks,
-    pack_arrival_plane,
-    plan_delivery_batch,
-)
 from .ops.scan import ScanGraphs, run_scan
 from .ops.step import initial_state, make_device_program
 
@@ -121,23 +115,6 @@ def expand_group_values(
                 )
             out[:, slots] = values
     return out
-
-
-def swept_rows(block, weights=None, counts=None) -> tuple:
-    """(live_rows, weights ``[..., count, tile]``, arrivals ``[..., count,
-    words]``) on the host for a kernel-delivery program's ``block`` (its
-    live rows alone) under per-sample overrides in sanafe_tpu's dense
-    layout: ``weights`` ``[B, n_blocks, tile, tile]`` and ``counts`` (int8
-    edge counts, packed here) of the same shape, either None where not
-    swept (the program's blocks then, laid out dense again). The rows
-    listed are those live in any sample (``build_live_rows``)."""
-    held_w, held_a = dense_blocks(
-        block.weights.cpu() if weights is None else None,
-        block.arrivals.cpu() if counts is None else None,
-        block.live_rows, block.n_blocks, block.tile)
-    arrivals = held_a if counts is None else torch.stack(
-        [pack_arrival_plane(c) for c in counts])
-    return compact_blocks(held_w if weights is None else weights, arrivals)
 
 
 class ParameterSweep:
@@ -223,7 +200,7 @@ class ParameterSweep:
             dense = (prog.block.n_blocks, prog.block.tile, prog.block.tile)
             blocks = {"block_weights": (dense, prog.dtype),
                       "block_counts": (dense, torch.int8)}
-            known["block_counts"] = None
+            known.update(dict.fromkeys(blocks))
         B = None
         self.arrays = dict(prog.arrays)
         swept = {}  # name -> ([B, ...] values, dtype)
@@ -277,24 +254,12 @@ class ParameterSweep:
                 self.arrays[name] = values[lo:hi].to(device=self.device,
                                                      dtype=dtype_of)
         if prog.kernel_delivery:
-            # the rows the kernel reads: those with an edge in any sample
-            # (the program's own where no sample overrides the blocks);
-            # and the kernel's operands, checked once for every step
-            blk = prog.block
-            live = blk.live_rows
-            if dense:
-                live, weights, arrivals = swept_rows(
-                    blk, dense.get("block_weights"),
-                    dense.get("block_counts"))
-                live = LiveRows(live.rows.to(self.device),
-                                live.offsets.to(self.device), live.count)
-                self.arrays["block_weights"] = weights.to(self.device)
-                self.arrays["block_arrivals"] = arrivals.to(self.device)
-            self.arrays["block_live_rows"] = live
-            self.arrays["block_batch_plan"] = plan_delivery_batch(
-                hi - lo, self.arrays["block_weights"],
-                self.arrays["block_arrivals"], blk.src_tiles,
-                blk.dest_offsets, blk.max_blocks_per_dest, live)
+            # the kernel's operands, checked once for every step: the rows
+            # with an edge in any sample (the program's own where no sample
+            # overrides the blocks)
+            self.arrays["block_batch_plan"] = prog.block.batch_plan(
+                hi - lo, dense.get("block_weights"),
+                dense.get("block_counts"))
         # the step scan's graphs, captured at the first run (prog.graph)
         self.graphs = ScanGraphs(prog, self.arrays) if prog.graph else None
 

@@ -87,7 +87,6 @@ from .ops.step import (
     DeviceProgram,
     initial_state,
     make_device_program,
-    settle_delivery,
 )
 from .parallel import state_neuron_dim
 from .ops.timing import (
@@ -1065,9 +1064,7 @@ class SpikingChip:
         self.total_spikes += rd.spikes
         self.total_neurons_updated += rd.neurons_updated
         self.total_neurons_fired += rd.neurons_fired
-        if settle_delivery(engine.prog, timesteps, rd.neurons_fired):
-            # the program took the live rows: its engines are rebuilt, so
-            # no graph outlives the cells it read
+        if engine.prog.settle(timesteps, rd.neurons_fired):
             self._engines = {key: e for key, e in self._engines.items()
                              if e.prog is not engine.prog}
 

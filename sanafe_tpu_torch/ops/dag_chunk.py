@@ -17,8 +17,8 @@ batch axis, leftover block delivery multiplies all the chunk's rows at once,
 and the only sequential work is each level's membrane recurrence: one
 launch of the level kernel (``ops/level_scan.py``, ``csrc/level_kernel.cu``)
 on CUDA, its plain version on the CPU. The stats roll-up is one
-``[T, 2N] @ [2N, K]`` product over the chunk (``rollup_stats``, which the
-step scan shares, so both engines give bit-identical stats).
+``[T, 2N] @ [2N, K]`` product over the chunk (``ops/step.py:rollup_stats``,
+which the step scan shares, so both engines give bit-identical stats).
 
 The outputs and the state follow the step scan's contract
 (``ops/scan.py``): a chunk run through one engine resumes in the other.
@@ -61,10 +61,10 @@ from .level_scan import PARAM_KEYS, level_kernel
 from .step import (
     DeviceProgram,
     _block_deliver,
-    _block_deliver_rows,
     _input_update,
     _packbits2,
     lif_noise,
+    rollup_stats,
 )
 
 # per-slot array keys the level soma updates read (sliced per level); the
@@ -220,38 +220,6 @@ def plan_dag(prog: DeviceProgram) -> Optional[DagPlan]:
     return DagPlan(levels=levels)
 
 
-def rollup_stats(prog: DeviceProgram, a, fired_f, upd_f):
-    """Batched fused roll-up (sanafe_tpu/ops/dag_chunk.py:rollup_stats): ONE
-    ``[T, 2N] @ [2N, K]`` product gives every per-step counter, energy and
-    per-core latency sum (column layout: ``build_rollup_matrix``), then the
-    simple-timing step time as the max over the per-core latency sums
-    (src/schedule.cpp:61-102). Shared by the DAG engine, the step scan and
-    ``ParameterSweep``, whose ``[T, B, N]`` planes give ``[T, B, ...]``
-    results. Returns ``(stats [T, 11], opt_perf or None)``."""
-    lhs = torch.cat([fired_f, upd_f], dim=-1)
-    # the product in float64, rounded once: a float32 GEMM's accumulation
-    # order follows the kernel cuBLAS picks for the shape, so the chunk
-    # length moved the energies (on an H100, a 4096-neuron chip's soma
-    # energy came out up to 1.6e-5 from float64 as one 1024-step product,
-    # 2.4e-7 as eight 128-step ones; scripts/h100_sweep_probe.py)
-    matrix = a["rollup_matrix"]
-    r = (lhs.double() @ matrix.double()).to(matrix.dtype) + (
-        a["rollup_const"][None])
-    n_cores = prog.compiled.n_cores
-    lat0, msg0 = 9, 9 + n_cores
-    opt0 = msg0 + n_cores
-    total_energy = r[..., 5] + r[..., 6] + r[..., 7] + r[..., 8]
-    sim_time = torch.maximum(
-        r[..., lat0:msg0].max(dim=-1).values,
-        r[..., msg0:opt0].max(dim=-1).values,
-    ) + prog.sync_t
-    stats = torch.cat(
-        [r[..., :9], total_energy[..., None], sim_time[..., None]], dim=-1
-    )
-    opt_perf = r[..., opt0:] if "perf_col_fired" in a else None
-    return stats, opt_perf
-
-
 def make_dag_body(prog: DeviceProgram, plan: DagPlan) -> Callable:
     """The DAG engine of one program: ``run(state, t0, length) -> (state,
     outputs)`` runs ``length`` steps from 1-based step ``t0`` (an int, or a
@@ -330,8 +298,8 @@ def make_dag_body(prog: DeviceProgram, plan: DagPlan) -> Callable:
                 cur_seq[1:] = torch.where(mask, g_cur[:, gidx], zero)
                 val_seq[1:] = mask & (g_cnt[:, gidx] > 0)
             if lv.has_leftover and T > 1:
-                blk_cur, blk_val = _block_deliver_rows(
-                    prog, a, asm_fired_f[:-1], n)
+                blk_cur, blk_val = _block_deliver(prog, a,
+                                                  asm_fired_f[:-1], n)
                 cur_seq[1:] += blk_cur[:, slots]
                 val_seq[1:] |= blk_val[:, slots]
 

@@ -15,8 +15,9 @@ sanafe_tpu's scan:
 - ``masks_packed`` [T, 2, ceil(N/8)] uint8: the fired and updated masks.
 
 Fused-roll-up programs without dense delivery emit the fired/updated planes
-from the loop and run one batched roll-up after it (``rollup_stats``, shared
-with the DAG engine of ``ops/dag_chunk.py``), as sanafe_tpu does. With a device sweep (``make_scan(device_sweep=True)``: the
+from the loop and run one batched roll-up after it (``ops/step.py:
+rollup_stats``, shared with the DAG engine), as sanafe_tpu does. With a
+device sweep (``make_scan(device_sweep=True)``: the
 merge sweep of ``ops/merge_sweep.py``), the sweep runs after the loop on the
 chunk's masks, still on the device, and adds
 
@@ -46,10 +47,9 @@ import torch
 
 from .. import tracing
 from .conv import full_float32_matmul
-from .dag_chunk import rollup_stats
 from .device_sweep import unpack_masks
 from .graphs import Captured, capture, replay
-from .step import DeviceProgram, _timestep
+from .step import DeviceProgram, _timestep, rollup_stats
 
 # Steps a captured graph holds: sanafe_tpu's unroll for fused-roll-up
 # chips (sanafe_tpu/ops/step.py:474-486). A chunk replays it

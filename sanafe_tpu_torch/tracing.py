@@ -37,15 +37,15 @@ work (``steps``, ``spikes``), as its fields. The names::
         sanafe.sweep.readback       the wait for the chunk's stats on the host
     sanafe.setup.load               SpikingChip.load (setup_wall)
     sanafe.setup.sweep              ParameterSweep's build
-    sanafe.setup.delivery           a program's block delivery built: the
+    sanafe.setup.delivery           a program's block delivery built
+                                    (ops/delivery.py:build_delivery): the
                                     live rows, or the edge cells where the
                                     kernel walks them faster, on the
                                     kernel's path (delivery_build_wall),
                                     within sanafe.setup.engine or
                                     .setup.sweep, or at a sim call's end
                                     where a program on the cells settles
-                                    on the rows (ops/step.py:
-                                    settle_delivery)
+                                    on the rows (CellBlocks.settle)
 
 On the CPU a program built with ``graph`` set runs each block eagerly, in
 a ``sanafe.replay`` span all the same. Spans go per call, chunk and replay,

@@ -103,7 +103,7 @@ def main() -> int:
     sweep_x = chip_smoke.sweep_plane(sweep, chip_smoke.PARAM_CAPTURE_STEP)
     blk = sweep.prog.block  # the live rows alone
     dblk = chip_smoke.dense_of(blk)  # the dense blocks again
-    live = sweep.arrays["block_live_rows"]
+    live = sweep.arrays["block_batch_plan"].live_rows
     every = delivery.every_row_live(blk.n_blocks, blk.tile, "cuda")
     # the plain version (and an older kernel) take the dense blocks; the
     # kernels the listed rows alone

@@ -5,7 +5,8 @@
 
 The rows' kernel reads only the live rows whose source fired; the cells'
 kernel reads every edge cell, each destination's as one chain of adds. This
-times both (``delivery_launch`` on each layout's plan, launches queued
+times both (each layout's ``deliver``: ``LiveRowBlocks`` and
+``CellBlocks`` of ``ops/delivery.py``, one launch each, queued
 ahead: ``chip_smoke.queued_ms``, cells and rows in turns) on the same chips
 at seeded random fired planes of several shares, and holds their currents
 and arrivals to each other bit for bit. The chips: ``chip_smoke.py``'s
@@ -30,10 +31,9 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402
 import sanafe_tpu_torch as st  # noqa: E402
-from sanafe_tpu_torch.ops import delivery  # noqa: E402
-from sanafe_tpu_torch.ops.step import (  # noqa: E402
-    build_block_cells,
-    build_block_delivery,
+from sanafe_tpu_torch.ops.delivery import (  # noqa: E402
+    CellBlocks,
+    LiveRowBlocks,
 )
 
 SHARES = (1.0, 0.5, 0.25, 0.12, 0.06, 0.03, 0.015, 0.0)
@@ -71,14 +71,9 @@ def main() -> int:
     with out.open("w") as sink:
         for name in ("full", "mid", "dvs", "full1024"):
             c = compiled(name, cuda)
-            rows = build_block_delivery(c, torch.float32, cuda,
-                                        live_only=True, hold_rows=True)
-            cells = build_block_cells(c, torch.float32, cuda)
+            rows = LiveRowBlocks.build(c, torch.float32, cuda)
+            cells = CellBlocks.build(c, torch.float32, cuda)
             shape = (rows.n_tiles, rows.tile)
-            row_plan = delivery.plan_delivery(
-                rows.weights, rows.arrivals, rows.src_tiles,
-                rows.dest_offsets, rows.max_blocks_per_dest, rows.live_rows)
-            cell_plan = delivery.plan_delivery_cells(cells.cells, shape)
             # each live row's source neuron: its block's source tile, its row
             live = rows.live_rows
             block = torch.repeat_interleave(
@@ -94,16 +89,15 @@ def main() -> int:
                                    generator=gen) < share
                 fired[c.n_neurons:] = False
                 x = fired.to(torch.float32).view(shape).contiguous()
-                got_c = delivery.delivery_launch(x, cell_plan)
-                got_r = delivery.delivery_launch(x, row_plan)
+                got_c = cells.deliver(x)
+                got_r = rows.deliver(x)
                 chip_smoke.check(
                     chip_smoke.same_bits(got_c[0], got_r[0])
                     and torch.equal(got_c[1], got_r[1]),
                     f"{name} at {share}: cells and rows differ")
                 turns = [chip_smoke.queued_ms(
-                    (lambda: delivery.delivery_launch(x, cell_plan))
-                    if kind == "cells"
-                    else (lambda: delivery.delivery_launch(x, row_plan)),
+                    (lambda: cells.deliver(x)) if kind == "cells"
+                    else (lambda: rows.deliver(x)),
                     REPS) for kind in ("cells", "rows", "rows", "cells")]
                 fired_rows = int(fired[source].sum())
                 line = {
@@ -121,7 +115,7 @@ def main() -> int:
                 sink.write(json.dumps(line) + "\n")
                 sink.flush()
                 print(json.dumps(line), flush=True)
-            del rows, cells, row_plan, cell_plan, live, block, source, c
+            del rows, cells, live, block, source, c
             torch.cuda.empty_cache()
     return 0
 

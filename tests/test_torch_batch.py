@@ -25,6 +25,9 @@ with one override dict in sanafe_tpu's names and layouts:
   NeuroFEM threshold sweep (the batched compartment scatter) against
   sanafe_tpu's without noise, and with noise each sample against the
   port's single chip (the step's draws are shared by the samples).
+  sanafe_tpu's plugin sweep is run once a process for each chip, override
+  and length (``_jax_plugin_sweep``): the two routes of the current sweep
+  compare against the same reference.
 
 On the CPU the batched delivery kernel's wrapper sums in the kernel's
 order; ``tests/test_torch_cuda.py`` holds the CUDA kernel to the plain
@@ -247,7 +250,7 @@ def test_kernel_delivery_program_matches_jax(monkeypatch, swept):
     assert sweep.prog.kernel_delivery and "block_counts" not in (
         sweep.prog.arrays)
     if swept == "block_counts":
-        assert sweep.arrays["block_arrivals"].shape[0] == 3
+        assert sweep.arrays["block_batch_plan"].arrivals.shape[0] == 3
     pout = sweep.run(30)
     assert_same(JaxSweep(jchip, overrides).run(30), pout, 1e-12)
     assert len(set(pout["neurons_fired"].tolist())) > 1
@@ -255,11 +258,11 @@ def test_kernel_delivery_program_matches_jax(monkeypatch, swept):
 
 def _blocks(dtype):
     from sanafe_tpu_torch.compile import compile_chip
-    from sanafe_tpu_torch.ops.step import build_block_delivery
+    from sanafe_tpu_torch.ops.delivery import DenseBlocks
 
     compiled = compile_chip(*random_chip(st, cores=16, neurons_per_core=128,
                                          n_log_potential=0))
-    blk = build_block_delivery(compiled, dtype, "cpu")
+    blk = DenseBlocks.build(compiled, dtype, "cpu")
     return compiled.n_neurons, blk, pack_arrival_plane(blk.counts)
 
 
@@ -364,13 +367,40 @@ def test_sweep_errors():
 
 # --- plugin somas -------------------------------------------------------------
 
-def _plugin_sweep_both(builder, overrides_of, steps, **kwargs):
+def _read_only(result: dict) -> dict:
+    """A sweep's result, its arrays (the energies' too) read-only."""
+    out = {}
+    for key, value in result.items():
+        if isinstance(value, dict):
+            out[key] = _read_only(value)
+        else:
+            out[key] = np.array(value)
+            out[key].setflags(write=False)
+    return out
+
+
+@functools.cache
+def _jax_plugin_sweep(builder, overrides_of, steps: int, x64: bool) -> dict:
+    """sanafe_tpu's half of ``_plugin_sweep_both`` (x64 on or off), once a
+    process for each chip, override and length, read-only."""
+    assert x64 == jax.config.jax_enable_x64
+    arch, net = builder(sf)
+    jchip = sf.SpikingChip(arch)
+    jchip.load(net)
+    return _read_only(JaxSweep(jchip, overrides_of(jchip.compiled)).run(
+        steps, chunk=16))
+
+
+def _plugin_sweep_both(builder, overrides_of, steps):
     """One plugin chip swept in both packages with the overrides
     ``overrides_of(compiled)`` gives: (sanafe_tpu's result, the port's)."""
-    jchip, pchip = _chips(builder, **kwargs)
-    overrides = overrides_of(pchip.compiled)
-    pout = st.ParameterSweep(pchip, overrides).run(steps, chunk=16)
-    return JaxSweep(jchip, overrides).run(steps, chunk=16), pout
+    arch, net = builder(st)
+    pchip = st.SpikingChip(arch, device="cpu", dtype=torch.float64)
+    pchip.load(net)
+    pout = st.ParameterSweep(pchip, overrides_of(pchip.compiled)).run(
+        steps, chunk=16)
+    return _jax_plugin_sweep(builder, overrides_of, steps,
+                             jax.config.jax_enable_x64), pout
 
 
 def _hh_current(compiled):

@@ -9,6 +9,16 @@ compiling each chip in both packages and comparing every compiled array.
 The other ``test_torch_*`` files import these builders. The JAX package is
 imported inside the tests that use it, so the builders also load where only
 the port is installed (the card's machine runs the ``cuda`` tests).
+
+This module is also where the port's tests set torch's CPU threads: on
+import it sets one intra-op thread (``DEFAULT_THREADS`` keeps torch's
+default, for a test that runs at both). The port's CPU path issues many
+small ops on small tensors, and several test processes each opening the
+machine's whole thread pool only contend: on an 8-core CPU a case of
+``test_torch_spike_rows.py`` that takes 19 s alone took 341 s beside five
+busy test workers. Each pytest-xdist worker collects every test module, and the
+port's test files import this one, so every process that runs port tests
+runs them on one thread. JAX's threads are not touched.
 """
 
 import dataclasses
@@ -18,9 +28,13 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 import sanafe_tpu_torch
 import sanafe_tpu_torch.tutorial
+
+DEFAULT_THREADS = torch.get_num_threads()
+torch.set_num_threads(1)
 
 
 def example_chip(mod):

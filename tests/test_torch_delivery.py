@@ -1,7 +1,8 @@
 """Block-dense delivery of the port against sanafe_tpu's.
 
-- ``build_block_delivery`` (sanafe_tpu_torch/ops/step.py) builds the same
-  blocks as sanafe_tpu's (ops/step.py:73), array for array, without the
+- ``DenseBlocks.build`` (sanafe_tpu_torch/ops/delivery.py, the plain
+  route's layout) builds the same blocks as sanafe_tpu's
+  ``build_block_delivery`` (ops/step.py:73), array for array, without the
   dense float64 host array: parallel edges summed in float64 in edge order,
   then cast; counts saturated at 127.
 - ``delivery_plain`` (sanafe_tpu_torch/ops/delivery.py) equals sanafe_tpu's
@@ -16,7 +17,8 @@
   of sanafe_tpu's ``build_block_delivery``; ``delivery_packed_plain`` and
   the wrapper's path for CPU tensors (the same sum over the listed rows
   alone, ``compact_blocks``) equal ``delivery_plain``'s currents and
-  ``cnt > 0``. All exact: masks and integer weights.
+  ``cnt > 0``, and so does the layout's own ``deliver``. All exact: masks
+  and integer weights.
 - The ``cuda`` tests hold the CUDA kernel (given the listed rows of the
   blocks, ``compact_blocks``) to ``delivery_plain`` on the card
   (``python -m pytest tests/test_torch_delivery.py -m cuda --noconftest``),
@@ -34,6 +36,7 @@ import torch
 
 import sanafe_tpu_torch
 from sanafe_tpu_torch.ops.delivery import (
+    DenseBlocks,
     build_live_rows,
     compact_blocks,
     delivery_kernel,
@@ -43,7 +46,6 @@ from sanafe_tpu_torch.ops.delivery import (
     pack_arrival_plane,
     unpack_arrival_plane,
 )
-from sanafe_tpu_torch.ops.step import build_block_delivery
 
 from test_torch_chips import _lif_arch, compile_both, random_chip
 
@@ -96,7 +98,7 @@ def test_block_build_matches_jax(name, dtype):
 
     jax_compiled, port_compiled = compile_named(name)
     jb = jax_build(jax_compiled)
-    pb = build_block_delivery(port_compiled, dtype, "cpu")
+    pb = DenseBlocks.build(port_compiled, dtype, "cpu")
     assert (jb.tile, jb.n_tiles, jb.n_pad) == (pb.tile, pb.n_tiles, pb.n_pad)
     np.testing.assert_array_equal(np.asarray(jb.src_tiles), pb.src_tiles)
     np.testing.assert_array_equal(np.asarray(jb.dest_tiles), pb.dest_tiles)
@@ -168,7 +170,7 @@ def test_delivery_plain_matches_jax(pattern, weights_kind):
 
     jax_compiled, port_compiled = compile_both("random1024")
     jb = jax_build(jax_compiled)
-    pb = build_block_delivery(port_compiled, torch.float64, "cpu")
+    pb = DenseBlocks.build(port_compiled, torch.float64, "cpu")
     weights = np.asarray(jb.weights, dtype=np.float64)
     if weights_kind == "real":
         rng = np.random.default_rng(1)
@@ -210,7 +212,7 @@ def test_arrival_plane_matches_jax_counts(name):
 
     jax_compiled, port_compiled = compile_named(name)
     jb = jax_build(jax_compiled)
-    pb = build_block_delivery(port_compiled, torch.float32, "cpu")
+    pb = DenseBlocks.build(port_compiled, torch.float32, "cpu")
     plane = pack_arrival_plane(pb.counts)
     words = -(-pb.tile // 32)
     assert plane.dtype == torch.int32
@@ -249,7 +251,7 @@ def test_delivery_kernel_takes_plain_for_cpu_tensors():
     (delivery_live_plain's, equal to delivery_plain's currents and cnt > 0
     on the chip's integer weights) and launches nothing."""
     _, port_compiled = compile_both("random1024")
-    pb = build_block_delivery(port_compiled, torch.float32, "cpu")
+    pb = DenseBlocks.build(port_compiled, torch.float32, "cpu")
     n = port_compiled.n_neurons
     x = torch.zeros(pb.n_pad)
     x[:n] = torch.from_numpy(fired_pattern(n, pb.tile, "sparse"))
@@ -258,11 +260,13 @@ def test_delivery_kernel_takes_plain_for_cpu_tensors():
     b = delivery_plain(*plain_args(pb, x))
     c = delivery_packed_plain(*dense_args(pb, x)[:-1])
     d = delivery_live_plain(*dense_args(pb, x))
+    e = pb.deliver(x.view(pb.n_tiles, pb.tile))
     assert delivery_kernel.launches == before
     assert a[1].dtype == torch.bool
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1] > 0)
     assert torch.equal(c[0], b[0]) and torch.equal(c[1], b[1] > 0)
     assert torch.equal(a[0], d[0]) and torch.equal(a[1], d[1])
+    assert torch.equal(e[0], b[0]) and torch.equal(e[1], b[1] > 0)
 
 
 @pytest.fixture()
@@ -296,7 +300,7 @@ def test_delivery_kernel_matches_plain(cuda, pattern, dtype):
     from sanafe_tpu_torch.compile import compile_chip
 
     compiled = compile_chip(*BUILDS["random1024"](sanafe_tpu_torch))
-    pb = build_block_delivery(compiled, dtype, cuda)
+    pb = DenseBlocks.build(compiled, dtype, cuda)
     n = compiled.n_neurons
     x = torch.zeros(pb.n_pad, dtype=dtype, device=cuda)
     x[:n] = torch.from_numpy(fired_pattern(n, pb.tile, pattern)).to(cuda)
@@ -307,8 +311,6 @@ def synthetic_blocks(tile, n_tiles, dtype, device, seed=5):
     """Seeded integer-weight blocks with tile ``tile``: about half of the
     (source, destination) pairs hold a block, destination tile 1 holds
     none, and a tenth of a block's cells hold an edge."""
-    from sanafe_tpu_torch.ops.step import BlockDelivery
-
     rng = np.random.default_rng(seed)
     pairs = [(d, s) for d in range(n_tiles) for s in range(n_tiles)
              if d != 1 and rng.random() < 0.5]
@@ -318,7 +320,7 @@ def synthetic_blocks(tile, n_tiles, dtype, device, seed=5):
         1, 4, (len(pairs), tile, tile))
     weights = counts * rng.integers(-8, 9, counts.shape)
     offsets = np.searchsorted(dest, np.arange(n_tiles + 1)).astype(np.int32)
-    return BlockDelivery(
+    return DenseBlocks(
         tile=tile, n_tiles=n_tiles, n_pad=n_tiles * tile,
         src_tiles=torch.from_numpy(src).to(device),
         dest_tiles=torch.from_numpy(dest).to(device),

@@ -135,12 +135,17 @@ def test_dvs_program_arrays_match(dvs_compiled):
         np.testing.assert_array_equal(
             _np(jprog.arrays[f"conv_src_idx_{i}"]),
             pprog.arrays[f"conv_src_idx_{i}"].numpy())
-    for key in ("conv_out_gidx", "conv_out_mask", "block_weights",
-                "block_counts", "block_src_tiles", "block_dest_tiles"):
-        a, b = _np(jprog.arrays[key]), pprog.arrays[key].numpy()
+    blk = pprog.block
+    for key, b in (("conv_out_gidx", pprog.arrays["conv_out_gidx"]),
+                   ("conv_out_mask", pprog.arrays["conv_out_mask"]),
+                   ("block_weights", pprog.arrays["block_weights"]),
+                   ("block_counts", pprog.arrays["block_counts"]),
+                   ("block_src_tiles", blk.src_tiles),
+                   ("block_dest_tiles", blk.dest_tiles)):
+        a, b = _np(jprog.arrays[key]), b.numpy()
         assert a.dtype == b.dtype, key
         np.testing.assert_array_equal(a, b, err_msg=key)
-    assert tuple(pprog.block.weights.shape) == (4, 256, 256)
+    assert tuple(blk.weights.shape) == (4, 256, 256)
 
 
 # --- conv delivery -----------------------------------------------------------

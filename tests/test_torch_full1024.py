@@ -20,7 +20,6 @@ import time
 
 import numpy as np
 import pytest
-import torch
 
 from benchmark.harness import report, runner, spec
 from sanafe_tpu_torch import chip as port_chip
@@ -109,7 +108,6 @@ def test_full1024_cell_against_the_reference(program, seed):
     cell = spec.Cell(spec.load_benchmark(), "full1024.simple")
     cell.config = dict(cell.config, **CUT)
     cell.traffic = dict(cell.traffic, steps=20, checked_calls=2)
-    torch.set_num_threads(2)
     run = runner.run_cell(cell, seed, 0.2, False, "cpu", time.perf_counter(),
                           log=lambda text: None)
     line = report.result_line(cell, run, False)

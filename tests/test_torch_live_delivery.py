@@ -23,26 +23,28 @@ within a block). It is held here:
 
 The wrappers take the listed rows alone (``compact_blocks``); over them
 they equal ``delivery_live_plain`` on the dense blocks bit for bit, one
-sample and batched. A kernel-delivery program (``use_kernel=True``; the
-CPU runs the same sum) builds those rows straight from its edges, equal to
-``build_live_rows`` and ``compact_blocks`` of the dense blocks, and the
+sample and batched. The live-row layout (``LiveRowBlocks``, a
+kernel-delivery program's with ``use_kernel=True``; the CPU runs the same
+sum) is built straight from the edges, equal to ``build_live_rows`` and
+``compact_blocks`` of the dense blocks (``DenseBlocks``), with the
 kernel's operands checked once (``plan_delivery``), whose entries are the
-list in list order; ``tests/test_torch_scan.py`` checks that its scans go
-through it, and ``tests/test_torch_parallel.py`` each rank's program on a
-mesh.
+list in list order; ``tests/test_torch_scan.py`` checks that a program's
+scans go through it, and ``tests/test_torch_parallel.py`` each rank's
+program on a mesh.
 
 Where the kernel walks them faster the program holds the edge cells
-instead (``build_block_cells``, ``DeliveryCells``: each destination's
-cells in source order), and ``delivery_cells_plain``, the kernel's sum
-over them, is held to ``delivery_live_plain`` over the rows of the same
-edges bit for bit: random real weights with -0.0, inf and NaN edges and
-duplicate edges (summing to NaN, cancelling to 0.0), at tiles 8, 64 and
-256 in float32 and float64. The path follows the kernel's measured cost
-(``delivery_us``, ``cells_faster``): sparse rows take the cells, dense
-rows and long lists the rows, parametrised in both dtypes; and a program
-on the cells settles on the rows after its first ``SETTLE_STEPS`` steps
-where those are faster at the share that fired (``settle_delivery``),
-once, through ``SpikingChip`` too, with the same spikes and potentials.
+instead (``CellBlocks``, ``DeliveryCells``: each destination's cells in
+source order), and ``delivery_cells_plain``, the kernel's sum over them,
+is held to ``delivery_live_plain`` over the rows of the same edges bit for
+bit: random real weights with -0.0, inf and NaN edges and duplicate edges
+(summing to NaN, cancelling to 0.0), at tiles 8, 64 and 256 in float32 and
+float64. The builder's choice (``build_delivery``) follows the kernel's
+measured cost (``delivery_us``, ``cells_faster``): sparse rows take the
+cells, dense rows and long lists the rows, parametrised in both dtypes;
+and a program on the cells settles on the rows after its first
+``SETTLE_STEPS`` steps where those are faster at the share that fired
+(``CellBlocks.settle``), once, through ``SpikingChip`` too, with the same
+spikes and potentials.
 
 The kernel itself is held to ``delivery_live_plain`` and to
 ``delivery_batch_kernel`` at one sample on the card, and over the cells to
@@ -59,9 +61,14 @@ from types import SimpleNamespace
 from sanafe_tpu_torch.ops.delivery import (
     CELL_GROUP,
     CELL_SLICE,
+    SETTLE_STEPS,
+    CellBlocks,
     CellDelivery,
     Delivery,
+    DenseBlocks,
+    LiveRowBlocks,
     LiveRows,
+    build_delivery,
     build_live_rows,
     cells_faster,
     compact_blocks,
@@ -78,14 +85,7 @@ from sanafe_tpu_torch.ops.delivery import (
     pack_arrival_plane,
     plan_delivery_cells,
 )
-from sanafe_tpu_torch.ops.step import (
-    SETTLE_STEPS,
-    BlockDelivery,
-    build_block_cells,
-    build_block_delivery,
-    make_device_program,
-    settle_delivery,
-)
+from sanafe_tpu_torch.ops.step import make_device_program
 
 from test_torch_chips import compile_both
 from test_torch_delivery import PATTERNS, fired_pattern, jax_deliveries
@@ -125,7 +125,7 @@ def test_live_plain_matches_jax(pattern, weights_kind):
 
     jax_compiled, port_compiled = compile_both("random1024")
     jb = jax_build(jax_compiled)
-    pb = build_block_delivery(port_compiled, torch.float64, "cpu")
+    pb = DenseBlocks.build(port_compiled, torch.float64, "cpu")
     weights = np.array(jb.weights, dtype=np.float64)
     if weights_kind == "real":
         # real weights on the chip's cells: the live rows are the chip's
@@ -164,7 +164,7 @@ def special_blocks(tile: int, np_dtype, seed: int = 4):
     the cells hold an edge; -0.0 cells without an edge (a row of them alone
     stays out of the list); a NaN row and an inf row; a row whose weights
     cancel to zero beside an arrival bit; destination tile 1 with no
-    block. Returns (BlockDelivery, weights, counts) as numpy."""
+    block. Returns (DenseBlocks, weights, counts) as numpy."""
     rng = np.random.default_rng(seed)
     n_tiles = 5
     pairs = [(d, s) for d in range(n_tiles) for s in range(n_tiles)
@@ -185,7 +185,7 @@ def special_blocks(tile: int, np_dtype, seed: int = 4):
     weights[2, 0, 1] = 0.0
     counts[3, 1] = 0
     weights[3, 1] = -0.0  # a row of -0.0 alone stays out
-    blk = BlockDelivery(
+    blk = DenseBlocks(
         tile=tile, n_tiles=n_tiles, n_pad=n_tiles * tile,
         src_tiles=torch.from_numpy(src), dest_tiles=torch.from_numpy(dest),
         weights=torch.from_numpy(weights),
@@ -256,7 +256,7 @@ def test_live_plain_matches_batch_plain_at_one_sample(pattern, dtype):
     plain version's products agree bit for bit."""
     torch_dtype = DTYPES[dtype][0]
     _, port_compiled = compile_both("random1024")
-    pb = build_block_delivery(port_compiled, torch_dtype, "cpu")
+    pb = DenseBlocks.build(port_compiled, torch_dtype, "cpu")
     n = port_compiled.n_neurons
     x = torch.zeros(pb.n_pad, dtype=torch_dtype)
     x[:n] = torch.from_numpy(fired_pattern(n, pb.tile, pattern))
@@ -342,7 +342,7 @@ def test_compact_rows_match_dense_blocks(tile, dtype):
 
 def edge_chip(n: int, seed: int, per_row: int = 0, m: int = 0,
               hub: bool = False):
-    """A compiled chip's edge arrays (what ``build_block_delivery`` reads)
+    """A compiled chip's edge arrays (what ``build_delivery`` reads)
     for ``n`` neurons: ``m`` seeded random edges (6 into each neuron where
     0), with
     real weights, -0.0, inf, -inf and NaN edges and duplicate edges (an
@@ -410,10 +410,12 @@ def test_cells_plain_matches_live_plain(n, dtype):
     order, and the wrapper on the CPU takes the same sum."""
     torch_dtype = DTYPES[dtype][0]
     c = edge_chip(n, seed=n)
-    dense = build_block_delivery(c, torch_dtype, "cpu")
-    blk = build_block_cells(c, torch_dtype, "cpu")
+    dense = DenseBlocks.build(c, torch_dtype, "cpu")
+    blk = CellBlocks.build(c, torch_dtype, "cpu")
     cells = blk.cells
-    assert blk.weights is None and blk.live_rows is None
+    assert blk.stored_bytes == sum(x.numel() * x.element_size() for x in (
+        blk.src_tiles, blk.dest_tiles, blk.dest_offsets, cells.src,
+        cells.weights, cells.lengths, cells.starts))
     assert cells.count == int((dense.counts > 0).sum())
     dest, src, weight = cell_list(cells, blk.n_pad)
     want_dest, want_src, want_weight = dense_cells(dense)
@@ -436,7 +438,7 @@ def test_cells_plain_matches_live_plain(n, dtype):
         got = delivery_cells_plain(x, cells)
         launched = delivery_launch(x, plan_delivery_cells(
             cells, (blk.n_tiles, blk.tile)))
-        for cur, arrived in (got, launched):
+        for cur, arrived in (got, launched, blk.deliver(x)):
             assert same_bits(cur, want[0]) and torch.equal(arrived, want[1])
         if pattern == "all":
             assert torch.isnan(got[0]).any() and torch.isinf(got[0]).any()
@@ -456,14 +458,16 @@ def test_path_follows_the_bytes(n, per_row, hub, dtype, takes):
     columns and a small random chip take the cells; full rows (of 256
     float32 weights on 16 tiles, of 256 float64 on 128), and a neuron whose
     list holds every neuron (one chain of 32,768 adds), the rows. The
-    other path is there on request, with the same cells."""
+    other layout is there on request (its constructor, or ``hold_rows``),
+    with the same cells; the plain route holds the dense blocks."""
     torch_dtype = DTYPES[dtype][0]
     c = edge_chip(n, seed=per_row, per_row=per_row, hub=hub)
-    blk = build_block_delivery(c, torch_dtype, "cpu", live_only=True)
-    rows = build_block_delivery(c, torch_dtype, "cpu", live_only=True,
-                                hold_rows=True)
-    cells = build_block_cells(c, torch_dtype, "cpu")
-    assert rows.cells is None and cells.live_rows is None
+    blk = build_delivery(c, torch_dtype, "cpu", kernel=True)
+    rows = build_delivery(c, torch_dtype, "cpu", kernel=True,
+                          hold_rows=True)
+    cells = CellBlocks.build(c, torch_dtype, "cpu")
+    assert isinstance(rows, LiveRowBlocks)
+    assert isinstance(build_delivery(c, torch_dtype, "cpu"), DenseBlocks)
     if hub:
         assert cells.cells.longest == n
     elif per_row:
@@ -474,13 +478,14 @@ def test_path_follows_the_bytes(n, per_row, hub, dtype, takes):
                         rows.live_rows.count, rows.n_tiles, rows.tile,
                         torch_dtype) == (takes == "cells")
     if takes == "cells":
-        assert blk.weights is None and blk.live_rows is None
+        assert isinstance(blk, CellBlocks)
         for key in ("src", "lengths", "starts"):
             assert torch.equal(getattr(blk.cells, key),
                                getattr(cells.cells, key))
         assert same_bits(blk.cells.weights, cells.cells.weights)
     else:
-        assert blk.cells is None and same_bits(blk.weights, rows.weights)
+        assert isinstance(blk, LiveRowBlocks)
+        assert same_bits(blk.weights, rows.weights)
         assert torch.equal(blk.live_rows.rows, rows.live_rows.rows)
 
 
@@ -501,15 +506,17 @@ def test_kernel_program_carries_live_rows(name, dtype):
     listed rows and packed arrival words bit for bit, the plan's entries
     the list in list order, each destination tile's contiguous. Either
     way ``stored_bytes`` counts exactly what it holds, and a program asked
-    to hold the rows (``hold_rows``, the sweep's) holds those. A program
-    without the kernel has no list and holds the dense blocks."""
+    to hold the rows (``hold_rows``, the sweep's) holds those; neither
+    puts a block tensor into the program's arrays. A program without the
+    kernel has no list and holds the dense blocks."""
     torch_dtype = DTYPES[dtype][0]
     _, port_compiled = compile_both(name)
     prog = make_device_program(port_compiled, "cpu", torch_dtype,
                                use_kernel=True)
     blk = prog.block
-    assert prog.kernel_delivery and blk.counts is None
-    dense = build_block_delivery(port_compiled, torch_dtype, "cpu")
+    assert prog.kernel_delivery and not isinstance(blk, DenseBlocks)
+    assert not any(key.startswith("block_") for key in prog.arrays)
+    dense = DenseBlocks.build(port_compiled, torch_dtype, "cpu")
     want, rows, words = compact_blocks(
         dense.weights, pack_arrival_plane(dense.counts))
     n_cells = int((dense.counts > 0).sum())
@@ -522,14 +529,12 @@ def test_kernel_program_carries_live_rows(name, dtype):
     assert blk.max_blocks_per_dest == dense.max_blocks_per_dest
     assert blk.n_blocks == dense.weights.shape[0]
     tables = [blk.src_tiles, blk.dest_tiles, blk.dest_offsets]
+    assert isinstance(blk, CellBlocks) == on_cells
     if on_cells:
         cells = blk.cells
         assert isinstance(blk.plan, CellDelivery) and blk.plan.cells is cells
         assert blk.plan.shape == (blk.n_tiles, blk.tile)
         assert blk.plan.launch is None
-        assert blk.weights is None and blk.arrivals is None
-        assert blk.live_rows is None
-        assert "block_weights" not in prog.arrays
         assert cells.count == n_cells > 0
         assert cells.longest == longest and cells.rows == want.count
         dest, src, weight = cell_list(cells, blk.n_pad)
@@ -552,7 +557,7 @@ def test_kernel_program_carries_live_rows(name, dtype):
             x.numel() * x.element_size() for x in held)
         blk = make_device_program(port_compiled, "cpu", torch_dtype,
                                   use_kernel=True, hold_rows=True).block
-        assert blk.cells is None
+    assert isinstance(blk, LiveRowBlocks)
     live = blk.live_rows
     plan = blk.plan
     assert live is plan.live_rows
@@ -584,7 +589,8 @@ def test_kernel_program_carries_live_rows(name, dtype):
     np.testing.assert_array_equal(tile_entries.numpy(), offsets[dest])
     plain = make_device_program(port_compiled, "cpu", torch_dtype)
     assert not plain.kernel_delivery
-    assert plain.block.plan is None
+    assert isinstance(plain.block, DenseBlocks)
+    assert plain.arrays["block_weights"] is plain.block.weights
 
 
 @pytest.mark.parametrize("calls,takes", [
@@ -600,41 +606,41 @@ def test_settle_delivery(calls, takes):
     (none), else it keeps the cells (every neuron), and either way it
     decides once (cells kept at first stay, later steps at no share
     notwithstanding). A program that takes the rows holds exactly what a
-    program asked for the rows holds, in its arrays too, and its
+    program asked for the rows holds, its arrays too, and its
     ``stored_bytes``; a program on the rows has nothing to settle."""
     _, port_compiled = compile_both("random1024")
     n = port_compiled.n_neurons
     prog = make_device_program(port_compiled, "cpu", torch.float32,
                                use_kernel=True)
-    cells = prog.block.cells
-    assert cells is not None and "block_weights" not in prog.arrays
+    began = prog.block
+    assert isinstance(began, CellBlocks)
+    cells = began.cells
     switched = []
     for steps, share in calls:
-        before = prog.steps_seen
-        switched.append(settle_delivery(prog, steps, int(share * n) * steps))
+        before = began.steps_seen
+        switched.append(prog.settle(steps, int(share * n) * steps))
         if before + steps < SETTLE_STEPS:
-            assert not prog.delivery_settled and prog.block.cells is cells
-    assert prog.delivery_settled
+            assert not began.settled and prog.block is began
+    assert began.settled
     assert switched[-1] == (takes == "rows") and sum(switched) <= 1
     share = calls[0][1] if len(calls) == 1 or calls[1][0] > 1 else 0.0
     assert cells_faster(cells.count, cells.longest, cells.rows,
-                        prog.block.n_tiles, prog.block.tile, torch.float32,
+                        began.n_tiles, began.tile, torch.float32,
                         share) == (takes == "cells")
     blk = prog.block
     if takes == "cells":
-        assert blk.cells is cells and isinstance(blk.plan, CellDelivery)
+        assert blk is began and isinstance(blk.plan, CellDelivery)
         return
     want = make_device_program(port_compiled, "cpu", torch.float32,
                                use_kernel=True, hold_rows=True)
-    assert blk.cells is None and isinstance(blk.plan, Delivery)
+    assert isinstance(blk, LiveRowBlocks) and isinstance(blk.plan, Delivery)
     assert same_bits(blk.weights, want.block.weights)
     assert torch.equal(blk.arrivals, want.block.arrivals)
     assert torch.equal(blk.live_rows.rows, want.block.live_rows.rows)
     assert blk.stored_bytes == want.block.stored_bytes
     assert sorted(prog.arrays) == sorted(want.arrays)
-    assert prog.arrays["block_weights"] is blk.weights
-    assert prog.arrays["block_arrivals"] is blk.arrivals
-    assert not settle_delivery(want, SETTLE_STEPS, 0)
+    assert not any(key.startswith("block_") for key in prog.arrays)
+    assert not want.settle(SETTLE_STEPS, 0)
 
 
 def quiet_chip(mod, cores=16, neurons_per_core=64, share=0.03, seed=3):
@@ -682,9 +688,10 @@ def test_chip_settles_on_the_rows(monkeypatch):
 
     import sanafe_tpu_torch as st
     from sanafe_tpu_torch import chip as port_chip
+    from sanafe_tpu_torch.ops import delivery as port_delivery
     from sanafe_tpu_torch.ops import step as port_step
 
-    launch = port_step.delivery_launch
+    launch = port_delivery.delivery_launch
     plans = []
 
     def record(x, plan):
@@ -699,7 +706,7 @@ def test_chip_settles_on_the_rows(monkeypatch):
                         spike_trace=True, potential_trace=True)]
         if kernel:
             (prog,) = chip._programs.values()
-            assert prog.delivery_settled and prog.block.cells is None
+            assert isinstance(prog.block, LiveRowBlocks)
             assert all(e.prog is not prog or e.graphs is None
                        for e in chip._engines.values())
             assert plans == [CellDelivery] * SETTLE_STEPS
@@ -710,7 +717,7 @@ def test_chip_settles_on_the_rows(monkeypatch):
         return out
 
     want = run(False)
-    monkeypatch.setattr(port_step, "delivery_launch", record)
+    monkeypatch.setattr(port_delivery, "delivery_launch", record)
     monkeypatch.setattr(port_chip, "make_device_program", functools.partial(
         port_step.make_device_program, use_kernel=True))
     got = run(True)

@@ -166,8 +166,8 @@ def test_sweep_live_rows_match_overrides(monkeypatch, swept):
         overrides = {swept: counts, "block_weights": weights[None].repeat(
             3, axis=0)}
     sweep = st.ParameterSweep(pchip, overrides)
-    assert "block_live_rows" not in sweep.prog.arrays
-    live = sweep.arrays["block_live_rows"]
+    assert "block_batch_plan" not in sweep.prog.arrays
+    live = sweep.arrays["block_batch_plan"].live_rows
     rows, offsets = live_reference(weights, counts)
     assert_lists(live, rows, offsets)
     assert 0 < live.count < counts.shape[-3] * counts.shape[-2]

@@ -185,14 +185,12 @@ def _rank_main(rank: int, world: int, store: str, out: str, jax_npz: str):
 
         import sanafe_tpu_torch.chip as port_chip
         from sanafe_tpu_torch.ops.delivery import (
+            CellBlocks,
+            DenseBlocks,
+            block_tiling,
             build_live_rows,
             cells_faster,
             pack_arrival_plane,
-        )
-        from sanafe_tpu_torch.ops.step import (
-            block_tiling,
-            build_block_cells,
-            build_block_delivery,
         )
         from sanafe_tpu_torch.parallel import block_edges, neuron_range
 
@@ -211,16 +209,14 @@ def _rank_main(rank: int, world: int, store: str, out: str, jax_npz: str):
         c = prog.compiled
         owned, _ = block_edges(c, None, block_tiling(c.n_neurons)[0],
                                *neuron_range(c.n_neurons, rank, world))
-        dense = build_block_delivery(c, prog.dtype, "cpu",
-                                     edge_subset=owned)
+        dense = DenseBlocks.build(c, prog.dtype, "cpu", owned)
         plane = pack_arrival_plane(dense.counts)
         rows = build_live_rows(dense.weights, plane)
-        want = build_block_cells(c, prog.dtype, "cpu",
-                                 edge_subset=owned).cells
+        want = CellBlocks.build(c, prog.dtype, "cpu", owned).cells
         held = blk.cells
         (out / f"kernel_mesh_r{rank}.pkl").write_bytes(pickle.dumps({
             "kernel": prog.kernel_delivery and prog.shard is not None,
-            "cells": (held is not None and blk.live_rows is None
+            "cells": (isinstance(blk, CellBlocks)
                       and cells_faster(want.count, want.longest, rows.count,
                                        blk.n_tiles, blk.tile, prog.dtype)),
             "count": held.count,
@@ -449,8 +445,11 @@ def test_block_edges_deliver_each_rank_whole(world):
     whole chip's blocks do, while a rank whose neurons span one tile
     builds that tile's blocks only; the route count is the chip's."""
     from sanafe_tpu_torch.compile import compile_chip
-    from sanafe_tpu_torch.ops.delivery import delivery_plain
-    from sanafe_tpu_torch.ops.step import block_tiling, build_block_delivery
+    from sanafe_tpu_torch.ops.delivery import (
+        DenseBlocks,
+        block_tiling,
+        delivery_plain,
+    )
     from sanafe_tpu_torch.parallel import block_edges, neuron_range
 
     c = pad_chip(compile_chip(*random_chip(st)), world)
@@ -466,15 +465,14 @@ def test_block_edges_deliver_each_rank_whole(world):
                                   blk.max_blocks_per_dest)
         return cur.reshape(-1), cnt.reshape(-1) > 0
 
-    whole = build_block_delivery(c, torch.float64, "cpu")
+    whole = DenseBlocks.build(c, torch.float64, "cpu")
     want_cur, want_any = deliver(whole)
     tiles_built = []
     for rank in range(world):
         lo, hi = neuron_range(c.n_neurons, rank, world)
         owned, total = block_edges(c, None, tile, lo, hi)
         assert total == whole.weights.shape[0]
-        blk = build_block_delivery(c, torch.float64, "cpu",
-                                   edge_subset=owned)
+        blk = DenseBlocks.build(c, torch.float64, "cpu", owned)
         cur, arrived = deliver(blk)
         assert torch.equal(cur[lo:hi].view(torch.int64),
                            want_cur[lo:hi].view(torch.int64))

@@ -25,7 +25,14 @@ plain version; ``use_kernel=True`` builds the kernel-shaped program, whose
 every step delivers through the live-row list, or the cell list where the
 rows are sparse (``delivery_launch`` on the program's plan:
 ``delivery_live_plain``'s order, ``delivery_cells_plain``'s the same).
+
+sanafe_tpu's scan of a chip is run once a process for each lane
+(``jax_scan``): the ``use_kernel`` cases of one chip compare against the
+same reference.
 """
+
+import functools
+from types import SimpleNamespace
 
 import jax
 import numpy as np
@@ -34,12 +41,13 @@ import torch
 
 import sanafe_tpu as sf
 import sanafe_tpu_torch as st
-from sanafe_tpu_torch.ops.delivery import CellDelivery
+from sanafe_tpu_torch.ops import delivery as port_delivery
+from sanafe_tpu_torch.ops.delivery import CellBlocks
 from sanafe_tpu_torch.ops.scan import rollup_stats, run_scan
 from sanafe_tpu_torch.ops.step import _timestep
 from sanafe_tpu_torch.ops.step import make_device_program as port_program
 
-from test_torch_chips import ALL_CHIPS, compile_both
+from test_torch_chips import ALL_CHIPS, DEFAULT_THREADS, compile_both
 
 FLAGS = dict(record_fired_axons=True, record_potentials=True,
              record_spikes=True, record_u=True)
@@ -81,16 +89,14 @@ def make_feeds(compiled, n_steps, seed=0):
 def through_the_list(monkeypatch):
     """Record the plan of every ``delivery_launch`` the port's step makes
     (the kernel-delivery programs' block delivery); returns the list."""
-    from sanafe_tpu_torch.ops import step as port_step
-
     plans = []
-    launch = port_step.delivery_launch
+    launch = port_delivery.delivery_launch
 
     def recorded(fired_tiles, plan):
         plans.append(plan)
         return launch(fired_tiles, plan)
 
-    monkeypatch.setattr(port_step, "delivery_launch", recorded)
+    monkeypatch.setattr(port_delivery, "delivery_launch", recorded)
     return plans
 
 
@@ -101,26 +107,48 @@ def assert_through_the_list(pprog, plans, steps=STEPS):
         assert not plans
         return
     blk = pprog.block
-    held = (blk.plan.cells if isinstance(blk.plan, CellDelivery)
-            else blk.plan.live_rows)
+    held = blk.cells if isinstance(blk, CellBlocks) else blk.live_rows
     assert held.count > 0
     assert len(plans) == steps and all(p is blk.plan for p in plans)
 
 
-def scan_both(name, dtype, use_kernel=None, steps=STEPS):
-    """One chunk of ``steps`` from the initial state through both scans."""
+def read_only(arrays: dict) -> dict:
+    """``arrays`` as numpy arrays that cannot be written."""
+    out = {k: np.array(v) for k, v in arrays.items()}
+    for v in out.values():
+        v.setflags(write=False)
+    return out
+
+
+@functools.cache
+def jax_scan(name: str, steps: int, x64: bool):
+    """sanafe_tpu's half of ``scan_both``, once a process for each chip,
+    length and lane (x64 on or off): the program's choices, and the state
+    and outputs of the chunk, read-only."""
     from sanafe_tpu.ops.step import make_device_program as jax_program
 
-    jax_compiled, port_compiled = compile_both(name)
-    feeds = make_feeds(jax_compiled, steps)
+    assert x64 == jax.config.jax_enable_x64
+    jax_compiled, _ = compile_both(name)
     jprog = jax_program(jax_compiled, **FLAGS)
-    jstate, jout = jprog.make_scan(steps)(jprog.init_state(), np.int64(1),
-                                          feeds)
+    jstate, jout = jprog.make_scan(steps)(
+        jprog.init_state(), np.int64(1), make_feeds(jax_compiled, steps))
+    choices = SimpleNamespace(
+        fused_rollup=jprog.fused_rollup, n_stats_cols=jprog.n_stats_cols,
+        dense_delivery=jprog.dense_delivery, arrays=frozenset(jprog.arrays))
+    return choices, read_only(jstate), read_only(jout)
+
+
+def scan_both(name, dtype, use_kernel=None, steps=STEPS):
+    """One chunk of ``steps`` from the initial state through both scans."""
+    from sanafe_tpu_torch.compile import compile_chip
+
+    jprog, jstate, jout = jax_scan(name, steps, jax.config.jax_enable_x64)
+    port_compiled = compile_chip(*ALL_CHIPS[name](st))
     pprog = port_program(port_compiled, "cpu", dtype, use_kernel=use_kernel,
                          **FLAGS)
-    pstate, pout = run_scan(pprog, pprog.init_state(), 1, steps, feeds)
-    as_np = lambda d: {k: np.asarray(v) for k, v in d.items()}  # noqa: E731
-    return (jprog, pprog, as_np(jstate), as_np(jout),
+    pstate, pout = run_scan(pprog, pprog.init_state(), 1, steps,
+                            make_feeds(port_compiled, steps))
+    return (jprog, pprog, jstate, jout,
             {k: v.numpy() for k, v in pstate.items()},
             {k: v.numpy() for k, v in pout.items()})
 
@@ -250,24 +278,32 @@ def test_program_choices_match_jax(f32):
     assert len(seen) == 4  # dense, block_wc, einsum, scatter
 
 
-def test_per_step_fused_rollup_equals_deferred(f32):
+@pytest.mark.parametrize("threads", ["one", "default"])
+def test_per_step_fused_rollup_equals_deferred(f32, threads):
     """_timestep's per-step fused roll-up gives the batched roll-up's
-    stats row for row (same matrix, same rows)."""
+    stats row for row (same matrix, same rows), on one torch thread and on
+    torch's default count: a float32 product's order of adds follows the
+    BLAS's threads."""
     _, port_compiled = compile_both("random2048")
     prog = port_program(port_compiled, "cpu", torch.float32, **FLAGS)
     assert prog.fused_rollup and not prog.dense_delivery
-    state = prog.init_state()
-    rows, planes = [], []
-    for t in range(1, 21):
-        new_state, out = _timestep(prog, prog.arrays, state, t)
-        _, deferred = _timestep(prog, prog.arrays, state, t,
-                                defer_rollup=True)
-        rows.append(out["stats"])
-        planes.append((deferred["fired_plane"], deferred["upd_plane"]))
-        state = new_state
-    fired = torch.stack([p[0] for p in planes]).to(torch.float32)
-    upd = torch.stack([p[1] for p in planes]).to(torch.float32)
-    stats, _ = rollup_stats(prog, prog.arrays, fired, upd)
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1 if threads == "one" else DEFAULT_THREADS)
+    try:
+        state = prog.init_state()
+        rows, planes = [], []
+        for t in range(1, 21):
+            new_state, out = _timestep(prog, prog.arrays, state, t)
+            _, deferred = _timestep(prog, prog.arrays, state, t,
+                                    defer_rollup=True)
+            rows.append(out["stats"])
+            planes.append((deferred["fired_plane"], deferred["upd_plane"]))
+            state = new_state
+        fired = torch.stack([p[0] for p in planes]).to(torch.float32)
+        upd = torch.stack([p[1] for p in planes]).to(torch.float32)
+        stats, _ = rollup_stats(prog, prog.arrays, fired, upd)
+    finally:
+        torch.set_num_threads(saved)
     np.testing.assert_allclose(torch.stack(rows).numpy(), stats.numpy(),
                                rtol=1e-6)
     assert stats[:, 4].sum() > 0

@@ -69,16 +69,6 @@ DTYPES = {"f64": torch.float64, "f32": torch.float32}
 MEDIAN = {"f64": 1e-9, "f32": 1e-5, ("random1024", "f32"): 1e-3}
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """merge_plain issues thousands of small ops; with several test workers
-    on the machine, intra-op threads only contend."""
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(saved)
-
-
 def feeds_for(compiled, n_steps, seed=0):
     """Seeded Poisson input spikes (the scan's host feed)."""
     if not compiled.has_poisson:
