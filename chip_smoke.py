@@ -4,8 +4,9 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --through 5    # phases 1-5 only, no result line
     python3 chip_smoke.py --phase 19     # phases 1 and 19, no result line
+    python3 chip_smoke.py --phase 20     # phases 1 and 20, no result line
 
-Builds the six CUDA kernels (sanafe_tpu_torch/csrc/*_kernel.cu) and the
+Builds the seven CUDA kernels (sanafe_tpu_torch/csrc/*_kernel.cu) and the
 kernels' chain floors (scripts/chain_floor.cu), one nvcc each, started
 together, into sanafe_tpu_torch/build/, and the native
 scheduler from the checkout, then runs these phases, each reported on its
@@ -254,6 +255,18 @@ own line:
    beside the bound from each path's least bytes (8 B a fired edge; every
    fired live row, ~4.39 GB), over the memory's 3.35 TB/s, and the peak
    device memory.
+20. the neuron kernel (csrc/neuron_kernel.cu) against the PyTorch route
+   on full and on full1024 (compiled as phase 19 loads it): a program on
+   each route, 100 simple steps through ScanGraphs each (the state after
+   them bit for bit, the counters exactly, energies and sim_time within
+   1e-5 relative; one neuron and one delivery launch a step on the
+   kernel's route, no neuron launch on the other); a step through the
+   graphs on each route, in turns (plain / kernel / kernel / plain, CUDA
+   events over 100-step chunks); the kernel alone, queued, beside its
+   bound (28 B and three flags a neuron, 4 B a fired message, over
+   3.35 TB/s) and the delivery's time; each route's step eager; the
+   bytes of the kernel's plan and of the dense roll-up matrices the
+   PyTorch route holds.
 
 Phases 6, 13 and 15, phase 12's level-kernel holds and its route through
 the delivery kernel run their scans and DAG chunks eagerly
@@ -346,6 +359,15 @@ HH_MID_STEPS_SWEEP = 20
 FULL1024_CONFIG = "tcad25_full1024"
 FULL1024_SEED = 2**31 + 19
 FULL1024_STEPS = 3  # at step 3 nearly every neuron fires
+# phase 20: steps a route's chunk, chunks timed a turn, queued kernel and
+# delivery launches, eager steps a turn, and the routes' largest relative
+# difference in energy or sim_time (float32 sums against the kernel's
+# float64 ones rounded once)
+NEURON_STEPS = 100
+NEURON_TURNS = 5
+NEURON_REPS = 50
+NEURON_EAGER_REPS = 10
+NEURON_REL_TOL = 1e-5
 # phase 18: each route captured and eager
 GRAPH_STEPS = 200
 GRAPH_PROFILE_STEPS = 64  # a multiple of the graphs' unroll: no new capture
@@ -643,7 +665,7 @@ def compare_chunks(a: dict, b: dict, name: str) -> float:
 
 def reset_counts() -> None:
     from sanafe_tpu_torch.ops import (chunk, delivery, device_sweep,
-                                      level_scan, merge_sweep)
+                                      level_scan, merge_sweep, neuron)
 
     chunk.chunk_kernel.launches = 0
     delivery.delivery_kernel.launches = 0
@@ -651,18 +673,20 @@ def reset_counts() -> None:
     merge_sweep.merge_kernel.launches = 0
     level_scan.level_kernel.launches = 0
     device_sweep.prefix_kernel.launches = 0
+    neuron.neuron_kernel.launches = 0
 
 
 def read_counts() -> dict:
     from sanafe_tpu_torch.ops import (chunk, delivery, device_sweep,
-                                      level_scan, merge_sweep)
+                                      level_scan, merge_sweep, neuron)
 
     return {"chunk_kernel": chunk.chunk_kernel.launches,
             "delivery_kernel": delivery.delivery_kernel.launches,
             "delivery_batch_kernel": delivery.delivery_batch_kernel.launches,
             "merge_kernel": merge_sweep.merge_kernel.launches,
             "level_kernel": level_scan.level_kernel.launches,
-            "prefix_kernel": device_sweep.prefix_kernel.launches}
+            "prefix_kernel": device_sweep.prefix_kernel.launches,
+            "neuron_kernel": neuron.neuron_kernel.launches}
 
 
 def bound(n_bytes: float, n_ops: float, ops_s: float = F32_OPS_S) -> tuple:
@@ -3685,6 +3709,133 @@ def full1024_phase(st, cuda, card) -> None:
     torch.cuda.empty_cache()
 
 
+# --- phase 20: the neuron kernel against the PyTorch route ----------------
+
+@contextmanager
+def neuron_route(path: str):
+    """Programs built inside take ``path``: "kernel" where ``neuron_path``
+    takes them, "plain" the PyTorch route."""
+    from sanafe_tpu_torch.ops import step
+
+    decide = step.neuron_path
+    if path == "plain":
+        step.neuron_path = lambda *args, **kwargs: "plain"
+    try:
+        yield
+    finally:
+        step.neuron_path = decide
+
+
+def neuron_case(name: str, compiled, cuda, card) -> None:
+    """Phase 20 on one chip (module docstring)."""
+    import torch
+
+    from sanafe_tpu_torch.ops import neuron, step
+    from sanafe_tpu_torch.ops.scan import ScanGraphs, run_scan
+
+    c = compiled
+    progs, graphs, runs = {}, {}, {}
+    for path in ("kernel", "plain"):
+        with neuron_route(path):
+            prog = step.make_device_program(c, cuda, torch.float32)
+        check((prog.neuron is not None) == (path == "kernel"),
+              f"{name}: the {path} route's program took the other route")
+        progs[path] = prog
+        graphs[path] = ScanGraphs(prog, prog.arrays)
+        reset_counts()
+        state, out = run_scan(prog, prog.init_state(), 1, NEURON_STEPS,
+                              graphs=graphs[path])
+        torch.cuda.synchronize()
+        runs[path] = (state, out, read_counts())
+    (k_state, k_out, k_counts), (p_state, p_out, p_counts) = (
+        runs["kernel"], runs["plain"])
+    check(k_counts["neuron_kernel"] == NEURON_STEPS
+          == k_counts["delivery_kernel"] and p_counts["neuron_kernel"] == 0,
+          f"{name}: launches {k_counts} (kernel), {p_counts} (plain) in "
+          f"{NEURON_STEPS} steps")
+    for key, value in k_state.items():
+        check(same_bits(value, p_state[key]),
+              f"{name}: state {key} differs between the routes after "
+              f"{NEURON_STEPS} steps")
+    k_stats = k_out["stats"].double().cpu().numpy()
+    p_stats = p_out["stats"].double().cpu().numpy()
+    check(np.array_equal(k_stats[:, :5], p_stats[:, :5]),
+          f"{name}: the routes' counters differ")
+    rel = float(np.max(np.abs(k_stats[:, 5:] - p_stats[:, 5:])
+                       / np.maximum(np.abs(p_stats[:, 5:]), 1e-300)))
+    check(rel <= NEURON_REL_TOL, f"{name}: energies and sim_time differ "
+          f"by {rel} relative between the routes")
+
+    # the 100-step chunk through the graphs, in turns
+    turns = []
+    for path in ("plain", "kernel", "kernel", "plain"):
+        prog, state = progs[path], runs[path][0]
+        turns.append(cuda_ms(lambda: run_scan(
+            prog, state, NEURON_STEPS + 1, NEURON_STEPS,
+            graphs=graphs[path]), NEURON_TURNS) / NEURON_STEPS)
+    plain_ms = (turns[0] + turns[3]) / 2
+    kernel_ms = (turns[1] + turns[2]) / 2
+
+    # the kernel alone, queued; each route's whole step eager; the delivery
+    prog = progs["kernel"]
+    t = torch.full((), NEURON_STEPS + 1, dtype=torch.int64, device=cuda)
+    out = neuron.neuron_kernel(prog.neuron, k_state, t, prog.block.n_pad)
+    alone_ms = queued_ms(lambda: neuron.neuron_kernel(
+        prog.neuron, k_state, t, prog.block.n_pad), NEURON_REPS)
+    tiles = out.fired_pad.view(prog.block.n_tiles, prog.block.tile)
+    deliver_ms = queued_ms(lambda: prog.block.deliver(tiles), NEURON_REPS)
+    eager = {}
+    for path in ("plain", "kernel", "kernel", "plain"):
+        p = progs[path]
+        eager.setdefault(path, []).append(cuda_ms(lambda: step._timestep(
+            p, p.arrays, runs[path][0], t), NEURON_EAGER_REPS))
+    eager = {path: sum(ms) / len(ms) for path, ms in eager.items()}
+    fired = out.fired.to(torch.float64)
+    messages = float(fired @ prog.arrays["neuron_n_axons"].to(torch.float64))
+    # the state read and written, the current read, three flags a neuron,
+    # a latency a fired message (csrc/neuron_kernel.cu, "What bounds it")
+    least_b = 28 * c.n_neurons + 3 * c.n_neurons / 8 + 4 * messages
+    least_ms, _ = bound(least_b, 0.0)
+    plan_b = sum(x.numel() * x.element_size()
+                 for x in (*prog.neuron.tensors, *prog.neuron.scratch))
+    dense_b = sum(progs["plain"].arrays[key].numel() * 4
+                  for key in ("core_onehot", "neuron_proc_lat_core"))
+    print(f"neuron_kernel: {name} {c.n_neurons} neurons on {c.n_cores} "
+          f"cores, {NEURON_STEPS} steps through ScanGraphs on each route: "
+          f"state bit for bit, counters exact, energies and sim_time within "
+          f"{rel} relative of the PyTorch route's; launches {k_counts} "
+          f"(kernel route); a step through the graphs {kernel_ms} ms on the "
+          f"kernel route, {plain_ms} ms on the PyTorch route ({plain_ms / kernel_ms}x; "
+          f"in turns plain / kernel / kernel / plain: {turns}); the kernel "
+          f"alone {alone_ms} ms a step (queued; {int(out.fired.sum())} "
+          f"fired, {messages} messages), bound {least_ms} ms (bytes: "
+          f"{least_b} B; {least_ms / alone_ms} of it reached), the delivery "
+          f"{deliver_ms} ms; a step eager {eager['kernel']} ms (kernel "
+          f"route), {eager['plain']} ms (PyTorch route; its neuron phase and "
+          f"roll-up ~{eager['plain'] - eager['kernel'] + alone_ms} ms); the "
+          f"plan holds {plan_b} B, the PyTorch route's dense roll-up "
+          f"matrices {dense_b} B | {card}", flush=True)
+    del progs, graphs, runs, prog, out, tiles, k_state, p_state
+    torch.cuda.empty_cache()
+
+
+def neuron_phase(st, cuda, card) -> None:
+    """Phase 20 (module docstring): full, then full1024."""
+    from benchmark.harness import network, spec
+    from sanafe_tpu_torch.compile import compile_chip
+
+    start = time.perf_counter()
+    neuron_case("full", compile_chip(*random_chip(st, **FULL)), cuda, card)
+    configs = spec.BENCH_DIR / "configs"
+    cfg = json.loads((configs / f"{FULL1024_CONFIG}.json").read_text())
+    module = spec.load_module(configs / f"{FULL1024_CONFIG}.py",
+                              f"smoke_{FULL1024_CONFIG}")
+    arch, net = network.build_network(st, module.describe(cfg,
+                                                          FULL1024_SEED))
+    neuron_case("full1024", compile_chip(arch, net), cuda, card)
+    print(f"phase 20: {time.perf_counter() - start} s", flush=True)
+
+
 def main() -> int:
     import argparse
 
@@ -3696,7 +3847,7 @@ def main() -> int:
         help="stop after this phase: a probe of the first phases, which "
         "prints no result line")
     parser.add_argument(
-        "--phase", type=int, choices=(19,), default=None,
+        "--phase", type=int, choices=(19, 20), default=None,
         help="run the setup phase and this one alone, with no result line")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -3742,6 +3893,9 @@ def run(tmp: Path, through=None, phase=None) -> int:
           f"native scheduler build {native_s} s | ptxas {ptxas}")
     if phase == 19:
         full1024_phase(st, cuda, card)
+        return 0
+    if phase == 20:
+        neuron_phase(st, cuda, card)
         return 0
 
     # --- 2. chunk kernel vs plain, on the same inputs ---
@@ -4275,6 +4429,7 @@ def run(tmp: Path, through=None, phase=None) -> int:
     print(f"phases 16-17: {time.perf_counter() - start} s", flush=True)
     graph_phase(st, cuda, card)
     full1024_phase(st, cuda, card)
+    neuron_phase(st, cuda, card)
 
     print(json.dumps({"kernels": [
         {

@@ -166,8 +166,10 @@ class ParameterSweep:
         self.device = chip.device
         # run() calls begun: the call id of their spans (tracing.py)
         self.runs = 0
-        with tracing.span("sanafe.setup.sweep"):
+        with tracing.span("sanafe.setup.sweep") as built:
             self._build(chip, overrides, dtype, mesh)
+            built.fields["neuron.path"] = (
+                "kernel" if self.prog.neuron is not None else "plain")
 
     def _build(self, chip, overrides: dict, dtype, mesh) -> None:
         """The sweep's program, its per-sample arrays and its graphs."""
@@ -184,10 +186,11 @@ class ParameterSweep:
         # on the 4096-neuron HH chip, PERF.md).
         fuse = all(name in DYNAMICS_ONLY or name.startswith("plugin_")
                    for name in overrides)
-        # the batched kernel reads the live rows, never the cells
+        # the batched kernel reads the live rows, never the cells; the
+        # neuron phase stays PyTorch's (a [B, n] state)
         self.prog = make_device_program(
             c, chip.device, chip.dtype if dtype is None else dtype,
-            fuse=fuse, hold_rows=True)
+            fuse=fuse, hold_rows=True, batched=True)
         prog = self.prog
         if not overrides:
             raise ValueError("no overrides given; use SpikingChip.sim()")

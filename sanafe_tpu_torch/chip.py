@@ -1082,8 +1082,11 @@ class SpikingChip:
         perf trace and the device sweep included); else the step scan."""
         engine = self._engines.get(prog_key + (use_scan,))
         if engine is None:
-            with tracing.span("sanafe.setup.engine", wall="setup_wall"):
+            with tracing.span("sanafe.setup.engine",
+                              wall="setup_wall") as built:
                 engine = self._build_engine(prog_key, use_scan)
+                built.fields["neuron.path"] = (
+                    "kernel" if engine.prog.neuron is not None else "plain")
             self._engines[prog_key + (use_scan,)] = engine
         return engine
 

@@ -63,7 +63,8 @@ DELIVERY_BATCH = KernelLibrary("delivery_batch")
 MERGE = KernelLibrary("merge")
 LEVEL = KernelLibrary("level")
 PREFIX = KernelLibrary("prefix")
-ALL = (CHUNK, DELIVERY, DELIVERY_BATCH, MERGE, LEVEL, PREFIX)
+NEURON = KernelLibrary("neuron")
+ALL = (CHUNK, DELIVERY, DELIVERY_BATCH, MERGE, LEVEL, PREFIX, NEURON)
 
 
 def _nvcc() -> str:

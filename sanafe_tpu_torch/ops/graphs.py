@@ -18,14 +18,14 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from . import chunk, delivery, device_sweep, level_scan, merge_sweep
+from . import chunk, delivery, device_sweep, level_scan, merge_sweep, neuron
 
 # The kernel wrappers' launch counters (module, wrapper name), read through
 # the module so that a wrapper replaced by a caller is still counted
 _COUNTED = ((chunk, "chunk_kernel"), (delivery, "delivery_kernel"),
             (delivery, "delivery_batch_kernel"),
             (merge_sweep, "merge_kernel"), (level_scan, "level_kernel"),
-            (device_sweep, "prefix_kernel"))
+            (device_sweep, "prefix_kernel"), (neuron, "neuron_kernel"))
 
 
 def launch_counts() -> list:

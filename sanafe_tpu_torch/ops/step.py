@@ -19,6 +19,13 @@ compiled chip to device tensors by the JAX package's rules and byte budgets
   from per-neuron aggregates or one matvec against the fused roll-up
   matrix.
 
+On the programs ``ops/neuron.py:neuron_path`` takes (float32 LIF chips on
+CUDA with the delivery kernel and without the fused roll-up), the neuron
+phase and the roll-up are one launch of the neuron kernel
+(``_kernel_timestep``), which also writes the fired plane the block
+delivery reads; the PyTorch code above stays the plain version it is
+held to.
+
 ``ops/scan.py`` loops ``_timestep`` over a chunk. The whole-chunk engine
 (``ops/chunk.py``) reads the same program for the small chips it takes, and
 the feed-forward engine (``ops/dag_chunk.py``) for the conv nets it takes.
@@ -61,6 +68,7 @@ from .delivery import (
     build_delivery,
     delivery_batch_launch,
 )
+from .neuron import NeuronPlan, neuron_kernel, neuron_path, plan_neuron
 
 # Budgets sanafe_tpu/ops/step.py:make_device_program applies before it folds
 # the per-neuron roll-up and the dense delivery columns into one matrix, and
@@ -273,6 +281,9 @@ class DeviceProgram:
     # the step scan replays its chunks as CUDA graphs (ops/scan.py:
     # ScanGraphs); on the CPU the same blocks run eagerly in graph form
     graph: bool = False
+    # the neuron phase and roll-up run as one launch of the neuron kernel
+    # (ops/neuron.py:neuron_path decides)
+    neuron: Optional[NeuronPlan] = None
 
     def init_state(self) -> dict[str, torch.Tensor]:
         """The state before the first step; a sharded program's holds its
@@ -314,6 +325,7 @@ def make_device_program(
     mesh=None,
     graph: Optional[bool] = None,
     hold_rows: bool = False,
+    batched: bool = False,
 ) -> DeviceProgram:
     """sanafe_tpu's ``make_device_program`` on ``device``.
 
@@ -345,7 +357,15 @@ def make_device_program(
     cells settles once (``DeviceProgram.settle``, which the chip calls).
     The TPU kernel's ``tile >= 128`` condition is its (8, 128) layout's;
     the CUDA kernel takes every tile size. On the CPU the default program
-    is sanafe_tpu's default one."""
+    is sanafe_tpu's default one.
+
+    Where ``ops/neuron.py:neuron_path`` takes the program (a float32 LIF
+    chip on the delivery kernel without the fused roll-up, among others;
+    ``batched``: a ``ParameterSweep``'s program, whose state and arrays
+    carry a sample axis, never), its step runs the neuron phase and the
+    roll-up as one launch of the neuron kernel (``prog.neuron``), and the
+    program holds no dense roll-up matrices (``core_onehot``,
+    ``neuron_proc_lat_core``)."""
     c = compiled
     device = torch.device(device)
     if use_kernel is None:
@@ -460,11 +480,6 @@ def make_device_program(
         arrays["perf_col_fired"] = farr(c.perf_col_fired)
         arrays["perf_col_updated"] = farr(c.perf_col_updated)
         arrays["perf_col_const"] = farr(c.perf_col_const)
-    if c.neuron_proc_lat_core is not None:
-        arrays["neuron_proc_lat_core"] = farr(c.neuron_proc_lat_core)
-        core_onehot = np.zeros((c.n_neurons, c.n_cores), dtype=np.float32)
-        core_onehot[np.arange(c.n_neurons), c.core_id] = 1.0
-        arrays["core_onehot"] = farr(core_onehot)
     if c.has_delay_dendrite:
         arrays["is_delay_dest"] = iarr(
             c.dendrite_model == DENDRITE_MODEL_ACCUMULATOR_DELAY, torch.bool)
@@ -560,6 +575,16 @@ def make_device_program(
             block.combine()
     if block is not None:
         arrays.update(block.arrays())
+    neuron = None
+    if neuron_path(c, dtype, device, kernel_delivery=kernel_delivery,
+                   fused_rollup=fused_rollup, sharded=mesh is not None,
+                   batched=batched) == "kernel":
+        neuron = plan_neuron(c, arrays, sync_delay)
+    elif c.neuron_proc_lat_core is not None:
+        arrays["neuron_proc_lat_core"] = farr(c.neuron_proc_lat_core)
+        core_onehot = np.zeros((c.n_neurons, c.n_cores), dtype=np.float32)
+        core_onehot[np.arange(c.n_neurons), c.core_id] = 1.0
+        arrays["core_onehot"] = farr(core_onehot)
     prog = DeviceProgram(
         compiled=c,
         dtype=dtype,
@@ -578,6 +603,7 @@ def make_device_program(
         dense_delivery=dense_delivery,
         n_stats_cols=n_stats_cols,
         graph=graph,
+        neuron=neuron,
     )
     if mesh is not None:
         from ..parallel import shard_program
@@ -758,7 +784,10 @@ def _timestep(prog: DeviceProgram, a, state, t, feeds=None,
     rank's arrays (``shard.arrays``) and state and ``feeds`` holds its
     columns; the masks and the traced potentials are gathered across the
     mesh, block delivery fills the tiles that hold the rank's neurons, and
-    the rest of the step runs on the whole masks as on one device."""
+    the rest of the step runs on the whole masks as on one device.
+
+    A program on the neuron kernel's route (``prog.neuron``) takes
+    ``_kernel_timestep``: the same state and outputs."""
     feeds = feeds or {}
     c = prog.compiled
     dtype = prog.dtype
@@ -766,6 +795,8 @@ def _timestep(prog: DeviceProgram, a, state, t, feeds=None,
     dev = prog.device
     if not isinstance(t, torch.Tensor):
         t = torch.tensor(t, dtype=torch.int64, device=dev)
+    if prog.neuron is not None:
+        return _kernel_timestep(prog, a, state, t)
     zero = torch.zeros((), dtype=dtype, device=dev)
     shard = prog.shard
     full_a = a
@@ -901,6 +932,34 @@ def _timestep(prog: DeviceProgram, a, state, t, feeds=None,
         outputs = {"stats": stats}
     if opt_perf is not None:
         outputs["opt_perf"] = opt_perf
+    return new_state, _record(prog, a, outputs, fired, updated_or_fired,
+                              potential, input_current)
+
+
+def _kernel_timestep(prog: DeviceProgram, a, state, t: torch.Tensor):
+    """``_timestep`` on the neuron kernel's route (``prog.neuron``): the
+    LIF update and the stats row in one launch (``ops/neuron.py``), which
+    also writes the padded fired plane that the block delivery reads."""
+    step = neuron_kernel(prog.neuron, state, t, prog.block.n_pad)
+    buffer_current, any_input = _deliver_padded(
+        prog, a, step.fired_pad, prog.compiled.n_neurons)
+    new_state = {
+        "potential": step.potential,
+        "input_current": step.input_current,
+        "refractory": step.refractory,
+        "buffer_current": buffer_current,
+        "buffer_valid": any_input,
+    }
+    return new_state, _record(prog, a, {"stats": step.stats}, step.fired,
+                              step.updated, step.potential,
+                              step.input_current)
+
+
+def _record(prog: DeviceProgram, a, outputs: dict, fired, updated_or_fired,
+            potential, input_current) -> dict:
+    """``outputs`` with the step's recorded traces added: the packed spike
+    log, the logged potentials and input currents, the packed masks."""
+    shard = prog.shard
     if prog.record_spikes and not prog.record_fired_axons:
         # with the fired masks streamed (detailed timing) the host derives
         # the spike log from them
@@ -919,7 +978,7 @@ def _timestep(prog: DeviceProgram, a, state, t, feeds=None,
         outputs["masks_packed"] = _packbits2(
             torch.stack([fired, updated_or_fired]), a["bit_weights"]
         )
-    return new_state, outputs
+    return outputs
 
 
 def _plugin_update(c: CompiledChip, a, state, valid, current, t,
@@ -1149,6 +1208,14 @@ def _block_deliver(prog: DeviceProgram, a, fired_f, n: int):
     fired_pad = torch.zeros(lead + (blk.n_pad,), dtype=prog.dtype,
                             device=prog.device)
     fired_pad[..., :n] = fired_f
+    return _deliver_padded(prog, a, fired_pad, n)
+
+
+def _deliver_padded(prog: DeviceProgram, a, fired_pad, n: int):
+    """``_block_deliver`` of the fired plane padded to ``prog.block.n_pad``
+    lanes (0 beyond ``n``)."""
+    blk = prog.block
+    lead = tuple(fired_pad.shape[:-1])
     tiles = fired_pad.view(lead + (blk.n_tiles, blk.tile))
     if not lead:
         acc, arrived = blk.deliver(tiles)

@@ -73,7 +73,10 @@ carries its program's delivery counters as fields: ``delivery.path``
 (``cells`` where it holds the edge cells, else ``rows``),
 ``delivery.cells`` (the cells it holds), ``delivery.live_rows`` (the live
 rows it holds; 0 where it holds the dense blocks or the cells) and
-``delivery.stored_bytes`` (the bytes of its device arrays).
+``delivery.stored_bytes`` (the bytes of its device arrays). A
+``sanafe.setup.engine`` or ``sanafe.setup.sweep`` span carries
+``neuron.path``: ``kernel`` where its program steps the neuron phase and
+roll-up through the neuron kernel (``ops/neuron.py``), else ``plain``.
 """
 
 from __future__ import annotations
