@@ -2,7 +2,8 @@
 the plain reference at a lower precision than the configuration states
 (the control, which ``correct`` has to refuse), or at the configuration's
 own precision with a planted fault. ``runner.run_cell(..., calls=...)``
-drives a run through these instead of the program."""
+drives a run through these instead of the program. The reference is the
+module that the cell's configuration names (``Cell.reference``)."""
 
 from collections import namedtuple
 
@@ -10,7 +11,7 @@ import numpy as np
 import torch
 
 from ..reference import noc
-from ..reference.chip import COUNTERS, ENERGIES, STATE_KEYS, Layout, Reference
+from .judge import COUNTERS, ENERGIES
 from .runner import SimCalls, SweepCalls
 
 Address = namedtuple("Address", "group_name neuron_offset")
@@ -47,15 +48,14 @@ class ControlSim(SimCalls):
     ``fault`` (one of ``FAULTS`` or ``CARRY_FAULTS``) planted where
     given."""
 
-    def __init__(self, desc: dict, traffic: dict, device, dtype,
+    def __init__(self, desc: dict, traffic: dict, device, reference, dtype,
                  allow_tf32: bool = False, fault: str = None):
-        super().__init__(None, traffic)
-        self.layout = Layout(desc)
+        super().__init__(None, traffic, reference)
+        self.layout = reference.Layout(desc)
         self.fault = fault
-        self.ref = Reference(self.layout, device, dtype,
-                             allow_tf32=allow_tf32,
-                             fault=fault if fault in ("stale_state",
-                                                      "half_batch") else None)
+        self.ref = reference.Reference(
+            self.layout, device, dtype, allow_tf32=allow_tf32,
+            fault=fault if fault in ("stale_state", "half_batch") else None)
         # the host sweep is float64 in the program: its control reads its
         # latencies in float32, the nearest precision below
         rounding = np.float64 if dtype == torch.float64 else np.float32
@@ -116,7 +116,8 @@ class ControlSim(SimCalls):
     def snapshot(self):
         if self.state is None:
             return None
-        return {key: self.state[key][0].clone() for key in STATE_KEYS}
+        return {key: self.state[key][0].clone()
+                for key in self.reference.STATE_KEYS}
 
     def t0(self) -> int:
         return self.t
@@ -125,7 +126,7 @@ class ControlSim(SimCalls):
         return {"neuron_processing": 0.0, "message_processing": 0.0,
                 "energy_stats": 0.0, "scheduler": 0.0, "graph_replays": 0}
 
-    def release(self, layout: Layout) -> None:
+    def release(self, layout) -> None:
         self.order = torch.arange(layout.n)
         self.ref = None
         self.state = None
@@ -135,13 +136,13 @@ class ControlSweep(SweepCalls):
     """Sweep runs served by the reference in ``dtype``, with ``fault``
     planted where given."""
 
-    def __init__(self, desc: dict, traffic: dict, device, dtype,
+    def __init__(self, desc: dict, traffic: dict, device, reference, dtype,
                  allow_tf32: bool = False, fault: str = None):
-        super().__init__(None, None, traffic, desc)
-        layout = Layout(desc)
+        super().__init__(None, None, traffic, desc, reference)
+        layout = reference.Layout(desc)
         base = layout.params[self.parameter]
         self.fault = fault
-        self.ref = Reference(
+        self.ref = reference.Reference(
             layout, device, dtype, allow_tf32=allow_tf32,
             fault=None if fault == "altered_answer" else fault,
             overrides={self.parameter: self.scales[:, None] * base[None, :]})
@@ -157,7 +158,7 @@ class ControlSweep(SweepCalls):
             out["neurons_fired"][0] += 1
         return out
 
-    def release(self, layout: Layout) -> None:
+    def release(self, layout) -> None:
         self.ref = None
 
 
@@ -166,8 +167,9 @@ def factory(dtype=torch.float32, allow_tf32: bool = False,
     """A ``calls`` factory for ``runner.run_cell``: the control or a
     planted fault in the program's place."""
 
-    def make(desc: dict, traffic: dict, device):
+    def make(desc: dict, traffic: dict, device, reference):
         cls = ControlSim if traffic["entry"] == "sim" else ControlSweep
-        return cls(desc, traffic, device, dtype, allow_tf32, fault)
+        return cls(desc, traffic, device, reference, dtype, allow_tf32,
+                   fault)
 
     return make

@@ -15,7 +15,12 @@ it: the reference starts the sampled call from the state the program
 held before it, then carries its own state into the next call, so a state
 the program fails to hand from one call to the next shows there. The
 set-up's first call is checked the same way, from the reference's own
-initial state."""
+initial state.
+
+The reference is the module that the cell's configuration names
+(``Cell.reference``, ``harness/spec.py``): its ``Layout`` and
+``Reference`` follow the calls, and its ``STATE_KEYS`` and
+``from_program`` read the program's state."""
 
 import gc
 import importlib
@@ -29,7 +34,6 @@ import torch
 
 from . import judge, network, profile
 from ..reference import noc
-from ..reference.chip import STATE_KEYS, Layout, Reference
 
 
 @dataclass
@@ -52,16 +56,18 @@ def dtype_of(desc: dict):
 class SimCalls:
     """``SpikingChip.sim(steps, timing_model, ...)`` back to back, with the
     traffic's ``kwargs`` passed to every call unchanged. A sampled call
-    keeps the chip's state before it; the reference follows the call from
-    that state (the first call, from its own initial state) and carries
-    its own state into the call after it."""
+    keeps the chip's state before it; the reference (the module
+    ``reference``) follows the call from that state (the first call, from
+    its own initial state) and carries its own state into the call after
+    it."""
 
     samples = 1
     keep_all = False
     carries = True
 
-    def __init__(self, chip, traffic: dict):
+    def __init__(self, chip, traffic: dict, reference):
         self.chip = chip
+        self.reference = reference
         self.steps = traffic["steps"]
         self.detailed = traffic["timing_model"] == "detailed"
         self.spike_trace = bool(traffic.get("spike_trace"))
@@ -77,11 +83,14 @@ class SimCalls:
     def snapshot(self) -> dict:
         """The state the reference models, of the program's state before
         a call; the program may hold more (the check of the call after
-        covers whatever it carries)."""
+        covers whatever it carries). Copied to the host: how many samples
+        the window holds at once depends on the calls the seed draws, and
+        a copy on the card would add that to ``peak_device_mib``."""
         state = self.chip._device_state
         if state is None:
             return None
-        return {key: state[key].clone() for key in STATE_KEYS}
+        return {key: state[key].to("cpu", copy=True)
+                for key in self.reference.STATE_KEYS}
 
     def t0(self) -> int:
         return self.chip.total_timesteps + 1
@@ -94,7 +103,7 @@ class SimCalls:
                 "scheduler": c.scheduler_wall,
                 "graph_replays": c.graph_replays}
 
-    def release(self, layout: Layout) -> None:
+    def release(self, layout) -> None:
         """Keep the reference index of each of the program's neuron slots,
         and let the chip go."""
         neurons = sorted(self.chip.compiled.neurons, key=lambda r: r.slot)
@@ -102,7 +111,7 @@ class SimCalls:
             layout.order_of([(r.group_name, r.offset) for r in neurons]))
         self.chip = None
 
-    def check(self, records: list, layout: Layout, device, dtype,
+    def check(self, records: list, layout, device, dtype,
               raster: bool = False, log=None) -> tuple:
         """Readings over the checked calls (in call order), and with
         ``raster`` each call's fired neurons ``[steps, neurons]``. A call
@@ -115,7 +124,7 @@ class SimCalls:
         found, rasters = {}, []
         sweeper = noc.Sweeper(noc.tables(layout) if self.detailed else None,
                               self.sweep_workers if self.detailed else 1)
-        ref = Reference(layout, device, dtype)
+        ref = self.reference.Reference(layout, device, dtype)
         carried, after = None, None
         with sweeper:
             for rec in records:
@@ -141,20 +150,10 @@ class SimCalls:
     def start_of(self, rec, ref, device, dtype) -> dict:
         """The program's state before a sampled call, in the reference's
         neuron order (the reference's initial state before the first)."""
-        order = self.order
         if rec["start"] is None:
-            state = ref.initial_state()
-        else:
-            state = {}
-            for key, value in rec["start"].items():
-                host = value.cpu()
-                out = torch.empty_like(host)
-                out[order] = host
-                state[key] = out[None].to(device)
-            state["refractory"] = state["refractory"].long()
-            for key in ("potential", "input_current", "buffer_current"):
-                state[key] = state[key].to(torch.float64).to(dtype)
-        return state
+            return ref.initial_state()
+        return self.reference.from_program(rec["start"], self.order, device,
+                                           dtype)
 
     def check_one(self, rec, ref, state, t0, layout, raster, sweeper, found,
                   rasters) -> tuple:
@@ -191,7 +190,8 @@ class SweepCalls:
     keep_all = True
     carries = False
 
-    def __init__(self, st, chip, traffic: dict, desc: dict):
+    def __init__(self, st, chip, traffic: dict, desc: dict, reference):
+        self.reference = reference
         self.steps = traffic["steps"]
         sweep = traffic["sweep"]
         self.parameter = sweep["parameter"]
@@ -219,16 +219,16 @@ class SweepCalls:
     def walls(self) -> dict:
         return {}
 
-    def release(self, layout: Layout) -> None:
+    def release(self, layout) -> None:
         self.chip = self.sweep = None
 
-    def check(self, records: list, layout: Layout, device, dtype,
+    def check(self, records: list, layout, device, dtype,
               raster: bool = False, log=None) -> tuple:
         """Readings over every run, and with ``raster`` each run's fired
         neurons ``[steps, samples, neurons]`` (the reference's, which every
         run is held to)."""
         base = layout.params[self.parameter]
-        ref = Reference(layout, device, dtype, overrides={
+        ref = self.reference.Reference(layout, device, dtype, overrides={
             self.parameter: self.scales[:, None] * base[None, :]})
         state, totals, planes = ref.run(ref.initial_state(self.samples), 1,
                                         self.steps, raster=raster)
@@ -239,11 +239,11 @@ class SweepCalls:
                        else [])
 
 
-def make_calls(st, chip, traffic: dict, desc: dict):
+def make_calls(st, chip, traffic: dict, desc: dict, reference):
     if traffic["entry"] == "sim":
-        return SimCalls(chip, traffic)
+        return SimCalls(chip, traffic, reference)
     if traffic["entry"] == "sweep":
-        return SweepCalls(st, chip, traffic, desc)
+        return SweepCalls(st, chip, traffic, desc, reference)
     raise ValueError(f"unknown entry {traffic['entry']!r}")
 
 
@@ -362,8 +362,8 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
     """Set up ``cell`` from ``seed``, measure it for ``seconds`` (or trace
     its ``trace_calls``), then compare what it produced with the reference.
     Returns the record the result line and the metric readers read.
-    ``calls(desc, traffic, device)`` puts something else in the program's
-    place (``control.factory``)."""
+    ``calls(desc, traffic, device, reference)`` puts something else in the
+    program's place (``control.factory``)."""
     device = torch.device(device)
     if device.type == "cuda":
         torch.cuda.init()
@@ -382,9 +382,9 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
         arch, net = network.build_network(st, desc)
         chip = st.SpikingChip(arch, device=device, dtype=dtype_of(desc))
         chip.load(net)
-        calls = make_calls(st, chip, traffic, desc)
+        calls = make_calls(st, chip, traffic, desc, cell.reference)
     else:
-        calls = calls(desc, traffic, device)
+        calls = calls(desc, traffic, device, cell.reference)
     checked_calls = traffic.get(
         "trace_checked_calls" if trace else "checked_calls", 0)
     window = Window(calls, device, Reservoir(checked_calls, seed))
@@ -432,7 +432,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
 
     # the window has closed: free the program, then follow it in the
     # reference
-    layout = Layout(desc)
+    layout = cell.reference.Layout(desc)
     calls.release(layout)
     gc.collect()
     if device.type == "cuda":

@@ -26,8 +26,13 @@ def loaded_after(code: str) -> set:
 
 
 def test_the_reference_loads_nothing_of_the_program():
-    tops = loaded_after("import benchmark.reference.chip, "
-                        "benchmark.reference.noc")
+    """Every module under reference/: the LIF chip, the shared NoC sweep
+    and whatever reference a configuration brings."""
+    names = sorted(p.stem for p in (ROOT / "benchmark" / "reference")
+                   .glob("*.py") if p.stem != "__init__")
+    assert {"chip", "noc"} <= set(names)
+    tops = loaded_after("import " + ", ".join(
+        f"benchmark.reference.{name}" for name in names))
     assert not tops & {"jax", "jaxlib", "flax", "sanafe_tpu",
                        "sanafe_tpu_torch"}
 
